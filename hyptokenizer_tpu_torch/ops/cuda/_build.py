@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and includes
+no PyTorch header, so it compiles in seconds. It is built at first use into
+``hyptokenizer_tpu_torch/_build/`` (listed in ``.gitignore``), into a file
+named by the hash of its source, so an edited source is never served stale.
+``build_all`` starts one nvcc per source, all at once. A failed build
+raises; there is no fallback.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
+ARCH = "arch=compute_90a,code=sm_90a"
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}       # name -> loaded ctypes.CDLL
+BUILD_LOG: dict = {}   # name -> {"seconds": float, "ptxas": str}
+
+
+def nvcc_path() -> str:
+    """The nvcc of ``$CUDA_HOME``, ``/usr/local/cuda`` or the PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def sources() -> list:
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def _target(name: str) -> tuple:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def build_all(names=None) -> dict:
+    """Compile every named source (default: all) that is not built yet, one
+    nvcc process each, in parallel. Returns {name: seconds}."""
+    names = sources() if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        src, out = _target(name)
+        if os.path.exists(out):
+            continue
+        cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", out + ".tmp", src]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       out)
+    took = {}
+    failed = []
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(out + ".tmp", out)
+        BUILD_LOG[name] = {"seconds": took[name], "ptxas": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _, out = _target(name)
+            if not os.path.exists(out):
+                build_all([name])
+            lib = ctypes.CDLL(out)
+            _LIBS[name] = lib
+        return lib

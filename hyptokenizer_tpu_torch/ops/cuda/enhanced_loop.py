@@ -1,0 +1,198 @@
+"""Kernel K1 (the scored merge segment) and the chunk driver around it.
+
+Replaces ``hyptokenizer_tpu/ops/pallas/enhanced_loop.py``: the Pallas
+``_kernel`` (:156) in its corpus-only configuration, ``_run_segment`` (:623)
+and ``_run_chunk_fused`` (:790). The kernel is ``csrc/enhanced_loop.cu``
+(see the note at its top for its design and its bound); its plain version
+is ``tokenizer/enhanced_state.enhanced_step``, looped to the same halt
+conditions by :func:`run_segment_plain`.
+
+:func:`run_segment` launches the kernel for a state on the card and runs
+the plain version for a state on the CPU; for a CUDA state it launches or
+raises, never falls back. ``launches`` counts kernel launches.
+
+:func:`run_chunk` is the segment relaunch loop: one corpus sync, then
+segments that halt at every adaptive-curvature event, with the curvature
+Adam step in PyTorch between them. It keeps the JAX loop's bounds (merge
+budget ``n_steps``, step budget ``n_steps + 1024``) and raises if a
+segment leaves the step counter unchanged without halting, so a kernel
+that fails to advance cannot loop forever.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from hyptokenizer_tpu_torch.ops.cuda import _build
+from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+from hyptokenizer_tpu_torch.tokenizer import scoring
+
+SOURCE = "enhanced_loop"
+MAX_BATCH = 32          # one warp per merge of a batch (csrc/enhanced_loop.cu)
+SEGMENT_STEPS = 1024    # steps per launch (the JAX package's segment_grid)
+NO_CURVATURE_STOP = 1 << 30
+
+launches = 0            # kernel launches since the last reset_launches()
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _launcher():
+    fn = _build.load(SOURCE).enhanced_loop_launch
+    if fn.argtypes is None:
+        ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([ptr] * 14 + [i] * 9 + [f] * 3
+                       + [i, i, f, i, f, i, ptr])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _halted(sc: dict, m_budget: int, s_budget: int, curv_stop: int) -> bool:
+    return bool(sc["stopped"] or sc["needs_resync"]
+                or sc["num_merges"] >= m_budget or sc["step"] >= s_budget
+                or sc["num_merges"] >= curv_stop)
+
+
+def run_segment_plain(st, config, m_budget: int, s_budget: int,
+                      curv_stop: int, sampler,
+                      n_steps: int = SEGMENT_STEPS):
+    """The plain version of the kernel: ``enhanced_step`` looped until a
+    halt condition holds or ``n_steps`` steps ran. The sampler is never
+    drawn from inside a segment (it halts at curvature events)."""
+    for _ in range(n_steps):
+        if _halted(E.state_scalars(st), m_budget, s_budget, curv_stop):
+            break
+        st = E.enhanced_step(st, config, sampler)
+    return st
+
+
+def _check_cuda_state(st, config) -> None:
+    E._check_corpus_only(config)
+    nb = max(1, config.merge_batch)
+    if nb > MAX_BATCH:
+        raise ValueError(f"merge_batch {nb} > {MAX_BATCH}: the kernel runs "
+                         "one warp per merge of a batch")
+    want = {
+        "emb": torch.float32, "lengths": torch.int32,
+        "merges": torch.int32, "merge_dists": torch.float32,
+    }
+    for name, dtype in want.items():
+        t = getattr(st.base, name)
+        if t.device.type != "cuda" or t.dtype != dtype or \
+                not t.is_contiguous():
+            raise ValueError(f"base.{name}: need a contiguous {dtype} CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+    want = {
+        "byte_lengths": torch.int32, "has_vowel": torch.bool,
+        "token_hash": torch.int32, "q_i": torch.int32, "q_j": torch.int32,
+        "q_dist": torch.float32, "q_score": torch.float32,
+        "hash_powers": torch.int32,
+    }
+    for name, dtype in want.items():
+        t = getattr(st, name)
+        if t.device.type != "cuda" or t.dtype != dtype or \
+                not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+    if st.q_i.shape != (3, config.queue_size):
+        raise ValueError(f"queues of shape {tuple(st.q_i.shape)}, expected "
+                         f"(3, {config.queue_size})")
+
+
+def run_segment_cuda(st, config, m_budget: int, s_budget: int,
+                     curv_stop: int, n_steps: int = SEGMENT_STEPS):
+    """One launch of kernel K1: up to ``n_steps`` steps, in place."""
+    global launches
+    _check_cuda_state(st, config)
+    base = st.base
+    dev = base.emb.device
+    si = torch.cat([
+        torch.stack([base.vocab_size, base.num_merges, base.step,
+                     base.empty_rounds, base.stopped.int(), st.phase,
+                     st.needs_resync.int(), st.corpus_synced]).int(),
+        torch.tensor([m_budget, s_budget, curv_stop], dtype=torch.int32,
+                     device=dev),
+        st.q_valid_total.int()]).contiguous()
+    sf = torch.stack([base.threshold, base.curvature]).float().contiguous()
+    b = config.base
+    thr = config.phase_thresholds
+    rc = _launcher()(
+        base.emb.data_ptr(), base.lengths.data_ptr(),
+        st.byte_lengths.data_ptr(), st.has_vowel.data_ptr(),
+        st.token_hash.data_ptr(), base.merges.data_ptr(),
+        base.merge_dists.data_ptr(), st.q_i.data_ptr(), st.q_j.data_ptr(),
+        st.q_dist.data_ptr(), st.q_score.data_ptr(),
+        st.hash_powers.data_ptr(), si.data_ptr(), sf.data_ptr(),
+        base.emb.shape[0], base.emb.shape[1], config.queue_size,
+        max(1, config.merge_batch), n_steps, st.hash_powers.shape[1],
+        int(config.use_hierarchical), config.phase2_step,
+        config.phase3_step, thr[0], thr[1], thr[2],
+        int(b.adaptive_threshold), b.threshold_growth_every,
+        b.threshold_growth, b.empty_growth_after, b.empty_growth,
+        b.empty_stop_after, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"enhanced_loop kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return dataclasses.replace(
+        st, phase=si[5], needs_resync=si[6].bool(),
+        base=dataclasses.replace(
+            base, vocab_size=si[0], num_merges=si[1], step=si[2],
+            empty_rounds=si[3], stopped=si[4].bool(), threshold=sf[0]))
+
+
+def run_segment(st, config, m_budget: int, s_budget: int, curv_stop: int,
+                sampler, n_steps: int = SEGMENT_STEPS):
+    """A segment on the state's own device: kernel K1 on the card, its
+    plain version on the CPU."""
+    if st.base.emb.device.type == "cpu":
+        return run_segment_plain(st, config, m_budget, s_budget, curv_stop,
+                                 sampler, n_steps)
+    return run_segment_cuda(st, config, m_budget, s_budget, curv_stop,
+                            n_steps)
+
+
+def run_chunk(st, config, n_steps: int, sampler,
+              segment_steps: int = SEGMENT_STEPS):
+    """One sync, then segments until ``n_steps`` merges, a resync, a stop or
+    the step budget."""
+    st = E.sync_corpus(st, config, sampler)
+    sc = E.state_scalars(st)
+    m_budget = sc["num_merges"] + n_steps
+    s_budget = sc["step"] + n_steps + 1024
+    freq = config.curvature_freq if config.use_adaptive_curvature else 0
+    while not _halted(sc, m_budget, s_budget, NO_CURVATURE_STOP):
+        if config.use_adaptive_curvature:
+            st = E._maybe_update_curvature(st, config, sampler)
+        curv_stop = ((int(st.curv_last) // freq + 1) * freq if freq > 0
+                     else NO_CURVATURE_STOP)
+        st = run_segment(st, config, m_budget, s_budget, curv_stop, sampler,
+                         segment_steps)
+        now = E.state_scalars(st)
+        if now["step"] == sc["step"] and not (now["stopped"]
+                                              or now["needs_resync"]):
+            raise RuntimeError(
+                f"merge segment made no progress at step {now['step']} "
+                f"(merges {now['num_merges']}): the kernel did not advance")
+        sc = now
+    return st
+
+
+def segment_bytes(st, config, n_merges: int) -> int:
+    """Bytes a segment of ``n_merges`` merges must move, each input read
+    once and each output written once: the three phase queues read and
+    their scores written back, two embedding rows and their token features
+    read per merge, and the new row, features and history written."""
+    k3 = 3 * config.queue_size
+    d1 = st.base.emb.shape[1]
+    queues = k3 * (4 + 4 + 4 + 4) + k3 * 4
+    per_merge_in = 2 * (d1 * 4 + 4 + 4 + 8 + 1)   # rows, len, bytes, hash, vowel
+    per_merge_out = d1 * 4 + 4 + 4 + 8 + 1 + 8 + 4  # + history pair, dist
+    powers = 2 * scoring.MAX_HASH_LEN * 4
+    return queues + powers + n_merges * (per_merge_in + per_merge_out)

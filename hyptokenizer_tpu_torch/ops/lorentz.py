@@ -1,0 +1,129 @@
+"""Lorentz (hyperboloid) model operations, in PyTorch.
+
+Port of ``hyptokenizer_tpu/ops/lorentz.py``: the part of its surface that
+the merge loop uses. Conventions are the JAX package's (see its module
+docstring and DEVIATIONS.md): points are ``(..., d+1)`` with the time-like
+coordinate first, ``<x,y>_L = x0*y0 - sum_i x_i y_i`` is positive on the
+sheet, ``acosh`` takes its log form and its argument is clamped to
+``>= 1 + eps``.
+
+Inner products run in full float32 (TF32 is off, ``_device.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hyptokenizer_tpu_torch import _device
+
+# --- stability constants (the JAX package's, lorentz.py:54-57) ---
+EPS_NORM = 1e-8          # min squared-norm clamp
+ACOSH_EPS = 1e-8         # <x,y>_L clamped to >= 1 + ACOSH_EPS
+EXP_ZERO_TOL = 1e-6      # exp-map / geodesic degenerate-direction mask
+
+
+def acosh(x: torch.Tensor) -> torch.Tensor:
+    """``acosh`` for ``x >= 1`` as ``log(x + sqrt(x^2 - 1))``.
+
+    The evaluation every kernel of both packages uses
+    (``ops/pallas/merge_loop.py`` ``_acosh``; ``csrc/enhanced_loop.cu``).
+    """
+    return torch.log(x + torch.sqrt(x * x - 1.0))
+
+
+def _signature(d1: int, like: torch.Tensor) -> torch.Tensor:
+    """Metric signature ``(+1, -1, ..., -1)`` of length ``d1``."""
+    sig = -torch.ones(d1, dtype=like.dtype, device=like.device)
+    sig[0] = 1.0
+    return sig
+
+
+def minkowski_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x0*y0 - <x_s, y_s>`` over the last axis, as one signed contraction."""
+    return torch.sum(x * _signature(x.shape[-1], x) * y, dim=-1)
+
+
+def project_to_hyperboloid(x: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Recompute the time coordinate: ``x0 = sqrt(1 + c * |x_spatial|^2)``."""
+    spatial = x[..., 1:]
+    sq = torch.sum(spatial * spatial, dim=-1, keepdim=True)
+    return torch.cat([torch.sqrt(1.0 + c * sq), spatial], dim=-1)
+
+
+def exp_map(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exponential map of tangent ``v`` at ``x`` (Minkowski tangent norm)."""
+    v_sq = (torch.sum(v[..., 1:] * v[..., 1:], dim=-1, keepdim=True)
+            - v[..., :1] * v[..., :1])
+    v_norm = torch.sqrt(torch.clamp_min(v_sq, EPS_NORM))
+    mask = (v_norm < EXP_ZERO_TOL).to(v.dtype)
+    direction = (1.0 - mask) * (v / (v_norm + mask))
+    return torch.cosh(v_norm) * x + torch.sinh(v_norm) * direction
+
+
+def geodesic_point(x: torch.Tensor, y: torch.Tensor, w) -> torch.Tensor:
+    """Point at fraction ``w`` along the geodesic from ``x`` to ``y``.
+
+    ``[sinh((1-w) d) x + sinh(w d) y] / sinh(d)`` in the JAX package's
+    scaled-exponential form (every exponent <= 0, no cancellation); ``d -> 0``
+    returns ``x``. Midpoints live on the c=1 sheet (curvature scales
+    distances only), so there is no curvature argument.
+    """
+    d = acosh(torch.clamp_min(minkowski_dot(x, y), 1.0 + ACOSH_EPS))
+    w = torch.as_tensor(w, dtype=x.dtype, device=x.device)
+    a = (1.0 - w) * d
+    b = w * d
+    num_x = torch.exp(-b) * (1.0 - torch.exp(-2.0 * a))
+    num_y = torch.exp(-a) * (1.0 - torch.exp(-2.0 * b))
+    den = torch.clamp_min(1.0 - torch.exp(-2.0 * d), EPS_NORM)
+    out = (num_x[..., None] * x + num_y[..., None] * y) / den[..., None]
+    return torch.where((d < EXP_ZERO_TOL)[..., None], x, out)
+
+
+def distance(x: torch.Tensor, y: torch.Tensor, c=1.0,
+             eps: float = ACOSH_EPS) -> torch.Tensor:
+    """Geodesic distance ``acosh(max(<x,y>_L, 1+eps)) / sqrt(c)``.
+
+    ``eps >= 1e-6`` keeps the gradient finite at coincident points (the
+    default rounds to exactly 1.0 in float32).
+    """
+    xy = torch.clamp_min(minkowski_dot(x, y), 1.0 + eps)
+    return acosh(xy) / torch.sqrt(torch.as_tensor(c, dtype=x.dtype,
+                                                  device=x.device))
+
+
+def pairwise_minkowski_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Gram matrix ``G[i, j] = <x_i, y_j>_L`` as one float32 matmul."""
+    return (x * _signature(x.shape[-1], x)) @ y.transpose(-1, -2)
+
+
+def pairwise_dist(x: torch.Tensor, y: torch.Tensor, c=1.0,
+                  eps: float = ACOSH_EPS) -> torch.Tensor:
+    """Pairwise distance matrix ``(B1, B2)``."""
+    xy = torch.clamp_min(pairwise_minkowski_dot(x, y), 1.0 + eps)
+    return acosh(xy) / torch.sqrt(torch.as_tensor(c, dtype=x.dtype,
+                                                  device=x.device))
+
+
+def origin(d: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """The hyperboloid origin ``(1, 0, ..., 0)`` in ``R^{d+1}``."""
+    out = torch.zeros(d + 1, dtype=dtype, device=_device.resolve(device))
+    out[0] = 1.0
+    return out
+
+
+def random_points(generator: torch.Generator, n: int, d: int, c=1.0,
+                  sigma: float = 0.01, device=None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Points near the origin: tangent Gaussian(0, sigma^2) -> exp map.
+
+    Draws from ``generator``, which must live on ``device``. The numbers
+    differ from ``jax.random``'s for the same seed; the distribution is the
+    same.
+    """
+    dev = _device.resolve(device)
+    spatial = sigma * torch.randn((n, d), generator=generator, device=dev,
+                                  dtype=dtype)
+    tangent = torch.cat([torch.zeros((n, 1), device=dev, dtype=dtype),
+                         spatial], dim=-1)
+    base = origin(d, dev, dtype).expand(n, d + 1)
+    return project_to_hyperboloid(exp_map(base, tangent), c)

@@ -1,0 +1,20 @@
+"""Tokenizer algorithms of the port (first slice: corpus-only training).
+
+- ``scoring``        — hashes, corpus replay, pair table, top-k queues
+- ``state``          — the merge state (corpus-only branch)
+- ``enhanced_state`` — sync, curvature Adam, the scored step (plain K1)
+- ``core``/``enhanced`` — the host-side tokenizer classes and artifacts
+- ``encode``         — tokenize/encode/decode
+- ``normalize``      — Unicode normalization and lossless pre-splitting
+"""
+
+from hyptokenizer_tpu_torch.tokenizer.core import HyperbolicTokenizer  # noqa: F401
+from hyptokenizer_tpu_torch.tokenizer.encode import Encoder  # noqa: F401
+from hyptokenizer_tpu_torch.tokenizer.enhanced import (  # noqa: F401
+    EnhancedHyperbolicTokenizer,
+)
+from hyptokenizer_tpu_torch.tokenizer.normalize import (  # noqa: F401
+    WHITESPACE,
+    WORDS_WITH_SPACE,
+    NormalizerConfig,
+)

@@ -1,0 +1,241 @@
+"""Host-side tokenizer base class: vocabulary, merge history, encode/decode
+and the on-disk artifacts.
+
+Port of what ``EnhancedHyperbolicTokenizer`` inherits from
+``hyptokenizer_tpu/tokenizer/core.py``. The artifact schema is the JAX
+package's (``vocab.json``, ``merges.json``, ``config.json``,
+``embeddings.npy``/``embeddings.pt``, ``training_stats.json``), byte for
+byte, so artifacts move between the two packages in both directions.
+
+The distance-only training loop and the dense candidate re-scan on load
+belong to later slices: a loaded state keeps its dense-candidate arrays
+poisoned, which corpus-only training never reads.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from hyptokenizer_tpu_torch import _device
+from hyptokenizer_tpu_torch.ops import lorentz as L
+from hyptokenizer_tpu_torch.tokenizer import state as state_lib
+from hyptokenizer_tpu_torch.tokenizer.encode import Encoder
+from hyptokenizer_tpu_torch.tokenizer.normalize import NormalizerConfig
+
+
+class HyperbolicTokenizer:
+    """Vocabulary, merge history and artifacts over a merge state."""
+
+    def __init__(
+        self,
+        vocab: Sequence[str],
+        embeddings,
+        curvature: float = 1.0,
+        merge_threshold: float = 0.1,
+        lr: float = 1e-3,
+        device=None,
+        max_vocab_size: int = 100_000,
+        use_approximate_search: bool = True,
+        adaptive_threshold: bool = True,
+        search_block: int = 512,
+        normalizer=None,
+        merge_policy: str = "fixpoint",
+    ):
+        if len(vocab) > max_vocab_size:
+            raise ValueError("initial vocab larger than max_vocab_size")
+        self.device = _device.resolve(device)
+        self.normalizer = normalizer
+        self.merge_policy = merge_policy
+        self.vocab: List[str] = list(vocab)
+        self.curvature = float(curvature)
+        self.merge_threshold = float(merge_threshold)
+        self.lr = float(lr)
+        self.max_vocab_size = int(max_vocab_size)
+        self.use_approximate_search = bool(use_approximate_search)
+        self.merge_history: List[Tuple[str, str, str]] = []
+        self.training_stats: List[Dict] = []
+        self.training_summary: Optional[Dict] = None
+        self._encoder: Optional[Encoder] = None
+        self._stats_draws = 0
+
+        emb0 = (embeddings.float() if torch.is_tensor(embeddings)
+                else torch.from_numpy(np.array(embeddings, np.float32)))
+        if emb0.ndim != 2 or emb0.shape[0] != len(vocab):
+            raise ValueError(f"embeddings shape {tuple(emb0.shape)} != "
+                             "(len(vocab), d+1)")
+        self.config = state_lib.MergeConfig(
+            max_vocab_size=self.max_vocab_size,
+            adaptive_threshold=adaptive_threshold,
+            search_block=search_block,
+            init_candidates=False,
+        )
+        self.state = state_lib.init_state(
+            emb0, [len(t) for t in self.vocab], curvature=self.curvature,
+            threshold=self.merge_threshold, config=self.config,
+            device=self.device)
+
+    # ------------------------------------------------------------------ props
+    @property
+    def current_vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @property
+    def token2idx(self) -> Dict[str, int]:
+        return {t: i for i, t in enumerate(self.vocab)}
+
+    @property
+    def embeddings(self) -> np.ndarray:
+        """Active embedding rows, host-side (V, d+1)."""
+        v = int(self.state.vocab_size)
+        return self.state.emb[:v].cpu().numpy()
+
+    # --------------------------------------------------------------- training
+    def _sync_merges_from_device(self) -> int:
+        """Pull new merge indices off the device, extend the string vocab."""
+        n_dev = int(self.state.num_merges)
+        n_host = len(self.merge_history)
+        if n_dev == n_host:
+            return 0
+        pairs = self.state.merges[n_host:n_dev].cpu().numpy()
+        for a, b in pairs:
+            tok_a, tok_b = self.vocab[int(a)], self.vocab[int(b)]
+            merged = tok_a + tok_b
+            self.vocab.append(merged)
+            self.merge_history.append((tok_a, tok_b, merged))
+        self._encoder = None
+        return n_dev - n_host
+
+    def distance_statistics(self, sample_size: int = 1000) -> Dict[str, float]:
+        """min/max/mean/std of sampled pairwise distances (diagnostics)."""
+        st = self.state
+        self._stats_draws += 1
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._stats_draws)
+        n = max(int(st.vocab_size), 2)
+        i = torch.randint(0, n, (sample_size,), generator=gen,
+                          device=self.device)
+        j = torch.randint(0, n - 1, (sample_size,), generator=gen,
+                          device=self.device)
+        j = torch.where(j >= i, j + 1, j)  # uniform over j != i
+        d = L.distance(st.emb[i], st.emb[j], st.curvature)
+        out = torch.stack([d.min(), d.max(), d.mean(),
+                           d.std(unbiased=False)]).tolist()
+        return {"min": out[0], "max": out[1], "mean": out[2], "std": out[3]}
+
+    # -------------------------------------------------------------- inference
+    def _get_encoder(self) -> Encoder:
+        if self._encoder is None:
+            self._encoder = Encoder(self.vocab, self.merge_history,
+                                    normalizer=self.normalizer,
+                                    merge_policy=self.merge_policy)
+        return self._encoder
+
+    def tokenize(self, text: str) -> List[str]:
+        return self._get_encoder().tokenize(text)
+
+    def encode(self, text: str) -> List[int]:
+        return self._get_encoder().encode(text)
+
+    def encode_batch(self, texts: Sequence[str]) -> List[List[int]]:
+        return self._get_encoder().encode_batch(texts)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._get_encoder().decode(ids)
+
+    # ----------------------------------------------------------------- persist
+    def save(self, path: str) -> None:
+        """Write the reference-schema artifacts."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "vocab.json"), "w") as f:
+            json.dump(self.vocab, f)
+        emb = self.embeddings
+        np.save(os.path.join(path, "embeddings.npy"), emb)
+        torch.save(torch.from_numpy(emb.copy()),
+                   os.path.join(path, "embeddings.pt"))
+        with open(os.path.join(path, "merges.json"), "w") as f:
+            json.dump([list(m) for m in self.merge_history], f)
+        config = {
+            "curvature": float(self.state.curvature),
+            "merge_threshold": float(self.state.threshold),
+            "embedding_dim": emb.shape[1] - 1,
+            "max_vocab_size": self.max_vocab_size,
+            "use_approximate_search": self.use_approximate_search,
+        }
+        if self.merge_policy != "fixpoint":
+            config["merge_policy"] = self.merge_policy
+        if self.normalizer is not None:
+            config["normalizer"] = self.normalizer.to_json()
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(config, f)
+        with open(os.path.join(path, "training_stats.json"), "w") as f:
+            json.dump(self.training_stats, f)
+        if self.training_summary:
+            with open(os.path.join(path, "training_summary.json"), "w") as f:
+                json.dump(self.training_summary, f)
+
+    @staticmethod
+    def _parse_artifacts(path: str):
+        """(vocab, emb, merges, config) of an artifact directory."""
+        with open(os.path.join(path, "vocab.json")) as f:
+            vocab = json.load(f)
+        npy = os.path.join(path, "embeddings.npy")
+        if os.path.exists(npy):
+            emb = np.load(npy)
+        else:
+            emb = torch.load(os.path.join(path, "embeddings.pt"),
+                             map_location="cpu",
+                             weights_only=True).detach().numpy()
+        cpath = os.path.join(path, "config.json")
+        config = {}
+        if os.path.exists(cpath):
+            with open(cpath) as f:
+                config = json.load(f)
+        with open(os.path.join(path, "merges.json")) as f:
+            merges = [tuple(m) for m in json.load(f)]
+        return vocab, emb, merges, config
+
+    def _restore_loaded_state(self, vocab, emb, merges) -> None:
+        """Restore the trained rows and history onto a tokenizer built from
+        the initial-vocabulary prefix."""
+        self.vocab = list(vocab)
+        self.merge_history = list(merges)
+        v = len(vocab)
+        st = self.state
+        st.emb[:v] = torch.from_numpy(np.array(emb[:v], np.float32)).to(
+            self.device)
+        st.lengths[:v] = torch.tensor([len(t) for t in vocab],
+                                      dtype=torch.int32, device=self.device)
+        st.vocab_size = torch.tensor(v, dtype=torch.int32, device=self.device)
+        if merges:
+            t2i: Dict[str, int] = {}
+            for i, t in enumerate(vocab):
+                t2i.setdefault(t, i)
+            pairs = torch.tensor([[t2i[a], t2i[b]] for a, b, _ in merges],
+                                 dtype=torch.int32, device=self.device)
+            st.merges[:len(merges)] = pairs
+            st.num_merges = torch.tensor(len(merges), dtype=torch.int32,
+                                         device=self.device)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "HyperbolicTokenizer":
+        """Load reference-schema artifacts onto ``device``."""
+        vocab, emb, merges, config = cls._parse_artifacts(path)
+        n_init = len(vocab) - len(merges)
+        tok = cls(
+            vocab=vocab[:n_init],
+            embeddings=emb[:n_init],
+            curvature=config.get("curvature", 1.0),
+            merge_threshold=config.get("merge_threshold", 0.1),
+            max_vocab_size=config.get("max_vocab_size", 100_000),
+            use_approximate_search=config.get("use_approximate_search", True),
+            normalizer=NormalizerConfig.from_json(config.get("normalizer")),
+            merge_policy=config.get("merge_policy", "fixpoint"),
+            device=device,
+        )
+        tok._restore_loaded_state(vocab, emb, merges)
+        return tok

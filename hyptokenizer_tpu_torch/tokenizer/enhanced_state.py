@@ -1,0 +1,617 @@
+"""The enhanced (feature-scored) merge loop, in PyTorch.
+
+Port of ``hyptokenizer_tpu/tokenizer/enhanced_state.py`` for the corpus-only
+configuration (``use_dense_channel=False`` with a corpus; see that module's
+docstring for the two-channel design). Candidates come from per-phase,
+score-sorted queues of corpus pairs that ``sync_corpus`` rebuilds at chunk
+boundaries; each step consumes the first ``merge_batch`` valid entries of
+the current phase's queue.
+
+``enhanced_step`` is the plain version of kernel K1
+(``ops/cuda/enhanced_loop.py``): the CPU path loops it, the card launches the
+kernel, and ``chip_smoke.py`` holds the two against each other.
+
+Random numbers. The JAX package draws from its state's PRNG key at every
+sync (coherence samples) and at every curvature event (negatives and
+distortion pairs). Here those draws come from a *sampler* passed in by the
+caller: :class:`TorchSampler` draws from a seeded ``torch.Generator``; the
+tests pass one that replays the JAX key chain, so both packages see the
+same numbers.
+
+The dense (geometric) channel, kernel K2, is a later slice: its
+configurations raise here instead of running.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from hyptokenizer_tpu_torch.ops import lorentz as L
+from hyptokenizer_tpu_torch.tokenizer import scoring
+from hyptokenizer_tpu_torch.tokenizer.state import (
+    THRESHOLD_CAP, MergeConfig, MergeState, insert_batch,
+)
+
+INF = float("inf")
+GRAD_EPS = 1e-6  # acosh clamp for differentiable paths (ops/lorentz.py)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnhancedConfig:
+    """Static configuration of the scored loop (the JAX package's fields)."""
+
+    base: MergeConfig = dataclasses.field(default_factory=MergeConfig)
+    n_init: int = 0
+    has_corpus: bool = False
+    merge_batch: int = 8
+    min_pair_freq: int = 1
+    use_dense_channel: bool = True
+    priority_replay: bool = False
+
+    use_frequency: bool = False
+    alpha: float = 0.4
+    beta: float = 0.4
+    gamma: float = 0.2
+    coherence_samples: int = 50
+
+    use_compression: bool = False
+    compression_weight: float = 0.3
+
+    use_hierarchical: bool = False
+    morphology_weight: float = 0.3
+    phase2_step: int = 1000
+    phase3_step: int = 6000
+    phase_thresholds: tuple = (0.05, 0.1, 0.2)
+
+    use_adaptive_curvature: bool = False
+    curvature_freq: int = 100
+    curvature_lr: float = 0.01
+    hierarchy_weight: float = 1.0
+    distortion_weight: float = 0.5
+    curvature_min: float = 0.1
+    curvature_max: float = 10.0
+    hier_pairs: int = 100
+    hier_negatives: int = 10
+    distortion_samples: int = 500
+
+    frozen_freqs: bool = False
+    freq_table_size: int = 1 << 17
+    queue_size: int = 4096
+
+    @property
+    def needs_corpus(self) -> bool:
+        return self.has_corpus and (self.use_frequency or self.use_compression
+                                    or self.use_hierarchical)
+
+    def weights(self):
+        """Cascaded feature weights (alpha, beta, gamma, comp_w, morph_w)."""
+        if self.use_frequency:
+            alpha, beta, gamma = self.alpha, self.beta, self.gamma
+        else:
+            alpha, beta, gamma = 0.7, 0.0, 0.0
+        comp_w = 0.0
+        if self.use_compression:
+            comp_w = self.compression_weight
+            alpha *= (1 - comp_w)
+            beta *= (1 - comp_w)
+            gamma *= (1 - comp_w)
+        morph_w = 0.0
+        if self.use_hierarchical:
+            morph_w = self.morphology_weight
+            alpha *= (1 - morph_w)
+            beta *= (1 - morph_w)
+            gamma *= (1 - morph_w)
+            comp_w *= (1 - morph_w)
+        return alpha, beta, gamma, comp_w, morph_w
+
+
+@dataclasses.dataclass
+class EnhancedState:
+    """Merge state + corpus statistics + feature state.
+
+    The JAX package's ``key`` field has no counterpart: draws come from the
+    sampler the caller passes (module docstring)."""
+
+    base: MergeState
+    phase: torch.Tensor            # i32: 1/2/3 hierarchical phase
+    corpus: torch.Tensor           # (N,) i32, PAD=-1 tail, SEP=-2 separators
+    corpus_synced: torch.Tensor    # i32 — merges already replayed
+    corpus_tokens: torch.Tensor    # i32 — live tokens at last sync
+    pair_keys: torch.Tensor        # (T, 2) i32 lex-sorted
+    pair_counts: torch.Tensor      # (T,) i32
+    max_pair_count: torch.Tensor   # i32
+    pair_unique: torch.Tensor      # i32 — unique pairs before clipping
+    q_i: torch.Tensor              # (3, K) i32 left id (-1 empty)
+    q_j: torch.Tensor              # (3, K) i32 right id
+    q_dist: torch.Tensor           # (3, K) f32 distance at sync curvature
+    q_score: torch.Tensor          # (3, K) f32; -inf = empty/consumed
+    q_valid_total: torch.Tensor    # (3,) i32 valid candidates in full table
+    needs_resync: torch.Tensor     # bool
+    coh_samples: torch.Tensor      # (S,) i32 per-chunk coherence samples
+    token_hash: torch.Tensor       # (max_V, 2) i32
+    byte_lengths: torch.Tensor     # (max_V,) i32
+    has_vowel: torch.Tensor        # (max_V,) bool
+    hash_powers: torch.Tensor      # (2, MAX_HASH_LEN) i32
+    morph_table: torch.Tensor      # (Mm,) i32 sorted, HKEY_SENT padded
+    morph_size: torch.Tensor       # i32
+    word_table: torch.Tensor       # (Mw,) i32 sorted
+    word_size: torch.Tensor        # i32
+    curv_m: torch.Tensor           # f32 Adam first moment
+    curv_v: torch.Tensor           # f32 Adam second moment
+    curv_t: torch.Tensor           # i32 Adam step
+    curv_last: torch.Tensor        # i32 — num_merges at last update
+
+
+def clone_state(st: EnhancedState) -> EnhancedState:
+    """A deep copy (merge steps update buffers in place)."""
+    return dataclasses.replace(
+        st, base=dataclasses.replace(
+            st.base, **{f.name: getattr(st.base, f.name).clone()
+                        for f in dataclasses.fields(MergeState)}),
+        **{f.name: getattr(st, f.name).clone()
+           for f in dataclasses.fields(EnhancedState) if f.name != "base"})
+
+
+class TorchSampler:
+    """The default source of the loop's random draws: a seeded
+    ``torch.Generator`` on the training device."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def _randint(self, shape, high: int) -> torch.Tensor:
+        return torch.randint(0, high, shape, generator=self.generator,
+                             device=self.device, dtype=torch.int32)
+
+    def coherence(self, n: int, high: int) -> torch.Tensor:
+        """(n,) token ids in [0, high) for one sync's coherence samples."""
+        return self._randint((n,), high)
+
+    def curvature(self, hp: int, hn: int, ds: int, high: int):
+        """Negatives (hp, hn) and distortion pairs (ds,), (ds,) for one
+        curvature event, ids in [0, high)."""
+        return (self._randint((hp, hn), high), self._randint((ds,), high),
+                self._randint((ds,), high))
+
+
+def assemble_enhanced_buffers(t_feat, morph_tab, word_tab, morph_size: int,
+                              word_size: int, max_v: int, table_size: int,
+                              queue_size: int, coh_samples: int,
+                              device) -> dict:
+    """Every EnhancedState field except ``base`` and ``corpus``.
+
+    ``t_feat`` is (n0, 4) int32: [hash1, hash2, byte_len, has_vowel] per
+    initial token; the morphology tables are sorted int32 hash arrays."""
+    dev = torch.device(device)
+    t_feat = torch.as_tensor(t_feat, dtype=torch.int32).to(dev)
+    n0 = t_feat.shape[0]
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    token_hash = torch.zeros((max_v, 2), dtype=torch.int32, device=dev)
+    token_hash[:n0] = t_feat[:, :2]
+    byte_lengths = torch.zeros((max_v,), dtype=torch.int32, device=dev)
+    byte_lengths[:n0] = t_feat[:, 2]
+    has_vowel = torch.zeros((max_v,), dtype=torch.bool, device=dev)
+    has_vowel[:n0] = t_feat[:, 3].bool()
+    return dict(
+        phase=i32(1), corpus_synced=i32(0), corpus_tokens=i32(0),
+        pair_keys=torch.full((table_size, 2), scoring.PKEY_SENT,
+                             dtype=torch.int32, device=dev),
+        pair_counts=torch.zeros((table_size,), dtype=torch.int32, device=dev),
+        max_pair_count=i32(0), pair_unique=i32(0),
+        q_i=torch.full((3, queue_size), -1, dtype=torch.int32, device=dev),
+        q_j=torch.full((3, queue_size), -1, dtype=torch.int32, device=dev),
+        q_dist=torch.full((3, queue_size), INF, device=dev),
+        q_score=torch.full((3, queue_size), -INF, device=dev),
+        q_valid_total=torch.zeros((3,), dtype=torch.int32, device=dev),
+        needs_resync=torch.tensor(False, device=dev),
+        coh_samples=torch.zeros((coh_samples,), dtype=torch.int32,
+                                device=dev),
+        token_hash=token_hash, byte_lengths=byte_lengths,
+        has_vowel=has_vowel,
+        hash_powers=scoring.hash_powers(device=dev),
+        morph_table=torch.as_tensor(morph_tab, dtype=torch.int32).to(dev),
+        morph_size=i32(morph_size),
+        word_table=torch.as_tensor(word_tab, dtype=torch.int32).to(dev),
+        word_size=i32(word_size),
+        curv_m=f32(0.0), curv_v=f32(0.0), curv_t=i32(0), curv_last=i32(0),
+    )
+
+
+# ----------------------------------------------------------------- features
+
+def _coherence(emb, rows, cols, lengths, c, threshold, samples_idx):
+    """Sigmoid semantic coherence of the simulated merges (rows, cols)."""
+    w_j = (lengths[cols].float()
+           / torch.clamp_min(lengths[rows] + lengths[cols], 1).float())
+    mid = L.geodesic_point(emb[rows], emb[cols], w_j)
+    s = samples_idx.long()
+    dmat = L.pairwise_dist(mid, emb[s], c, eps=GRAD_EPS)
+    not_self = (s[None, :] != rows[:, None]) & (s[None, :] != cols[:, None])
+    cnt = torch.clamp_min(not_self.sum(dim=1), 1)
+    avg = torch.where(not_self, dmat, torch.zeros_like(dmat)).sum(dim=1) / cnt
+    return 1.0 / (1.0 + torch.exp(avg - threshold))
+
+
+def _morph_scores(st: EnhancedState, rows, cols):
+    """(n, 3) morphology score per phase for candidate pairs."""
+    len_i = st.base.lengths[rows]
+    len_j = st.base.lengths[cols]
+    p1 = torch.where((len_i <= 2) & (len_j <= 2), 0.8, 0.2)
+    merged = scoring.compose_hash(st.token_hash[rows], st.token_hash[cols],
+                                  st.byte_lengths[cols], st.hash_powers)
+    mkey = scoring.pack_hash(merged[..., 0], merged[..., 1])
+    is_morph = scoring.in_sorted_set(mkey, st.morph_table, st.morph_size)
+    merged_vowel = st.has_vowel[rows] | st.has_vowel[cols]
+    is_word = (scoring.in_sorted_set(mkey, st.word_table, st.word_size)
+               | ((len_i + len_j >= 3) & merged_vowel))
+    p2 = torch.where(is_morph, 0.9, 0.3)
+    p3 = torch.where(is_word, 1.0, 0.4)
+    return torch.stack([p1, p2, p3], dim=-1).float()
+
+
+def _full_scores(st: EnhancedState, config: EnhancedConfig, rows, cols,
+                 dists, freqs):
+    """(n, 3) combined score per phase with the reference's weight cascade.
+
+    Coherence uses the sync's sample set ``st.coh_samples``; compression the
+    sync-time token total ``st.corpus_tokens``."""
+    base = st.base
+    alpha, beta, gamma, comp_w, morph_w = config.weights()
+    n = rows.shape[0]
+    dev = dists.device
+    dist_score = 1.0 / (1.0 + dists)
+    frequency_score = torch.zeros((n,), device=dev)
+    semantic = torch.zeros((n,), device=dev)
+    compression = torch.zeros((n,), device=dev)
+    if config.use_frequency:
+        denom = torch.log1p(torch.clamp_min(st.max_pair_count, 1).float())
+        frequency_score = (torch.log1p(freqs.float())
+                           / torch.clamp_min(denom, 1e-9))
+        semantic = _coherence(base.emb, rows, cols, base.lengths,
+                              base.curvature, base.threshold, st.coh_samples)
+    if config.use_compression:
+        total = torch.clamp_min(st.corpus_tokens, 1).float()
+        ratio = total / torch.clamp_min(total - freqs.float(), 1.0)
+        compression = torch.clamp(ratio - 1.0, 0.0, 1.0)
+    score = (alpha * dist_score + beta * frequency_score + gamma * semantic
+             + comp_w * compression)[:, None] * torch.ones((1, 3), device=dev)
+    if config.use_hierarchical:
+        score = score + morph_w * _morph_scores(st, rows, cols)
+    return score
+
+
+# --------------------------------------------------------------- curvature
+
+def _curvature_losses(st: EnhancedState, config: EnhancedConfig, draws,
+                      c: torch.Tensor) -> torch.Tensor:
+    """Hierarchy-preservation + distortion loss at curvature ``c``."""
+    negs, ii, jj = (d.long() for d in draws)
+    base = st.base
+    emb = base.emb
+    nm = base.num_merges
+    hp = config.hier_pairs
+    idx = torch.arange(hp, device=emb.device)
+    take = torch.clamp_min(nm - hp, 0) + idx
+    take = torch.minimum(take, torch.clamp_min(nm - 1, 0)).long()
+    valid_pair = idx < torch.clamp_max(nm, hp)
+    pi = base.merges[take, 0].long()
+    pj = base.merges[take, 1].long()
+    xi = emb[pi]
+    xj = emb[pj]
+    pair_d = L.distance(xi, xj, c, eps=GRAD_EPS)
+    neg_emb = emb[negs]
+    d_i = L.distance(xi[:, None, :], neg_emb, c, eps=GRAD_EPS)
+    d_j = L.distance(xj[:, None, :], neg_emb, c, eps=GRAD_EPS)
+    not_self = (negs != pi[:, None]) & (negs != pj[:, None])
+    margin = 0.1
+    zero = torch.zeros((), device=emb.device)
+    h_i = torch.where(not_self, torch.relu(pair_d[:, None] - d_i + margin),
+                      zero)
+    h_j = torch.where(not_self, torch.relu(pair_d[:, None] - d_j + margin),
+                      zero)
+    cnt = torch.clamp_min(not_self.sum(dim=1), 1)
+    per_pair = (h_i.sum(dim=1) + h_j.sum(dim=1)) / cnt
+    n_eff = torch.clamp_min(valid_pair.sum(), 1)
+    hier_loss = torch.where(valid_pair, per_pair, zero).sum() / (2 * n_eff)
+
+    dd = L.distance(emb[ii], emb[jj], c, eps=GRAD_EPS)
+    keep = ii != jj
+    cnt = torch.clamp_min(keep.sum(), 1)
+    mean_d = torch.where(keep, dd, zero).sum() / cnt
+    var_d = torch.where(keep, (dd - mean_d) ** 2, zero).sum() / cnt
+    distortion = torch.exp(-10.0 * mean_d) + 0.1 * var_d
+    return (config.hierarchy_weight * hier_loss
+            + config.distortion_weight * distortion)
+
+
+def _maybe_update_curvature(st: EnhancedState, config: EnhancedConfig,
+                            sampler) -> EnhancedState:
+    """Adam step on curvature every ``curvature_freq`` merges.
+
+    Draws happen only inside a fired update, so the draw sequence is a
+    function of merge counts alone: the kernel halts at curvature events and
+    this runs between segments, reproducing the step-by-step order.
+    """
+    if config.curvature_freq <= 0:
+        return st
+    base = st.base
+    nm = int(base.num_merges)
+    freq = config.curvature_freq
+    if nm // freq <= int(st.curv_last) // freq:
+        return st
+    draws = sampler.curvature(config.hier_pairs, config.hier_negatives,
+                              config.distortion_samples,
+                              max(int(base.vocab_size), 1))
+    with torch.enable_grad():
+        c = base.curvature.detach().clone().requires_grad_(True)
+        g = torch.autograd.grad(_curvature_losses(st, config, draws, c), c)[0]
+    t = st.curv_t + 1
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    m = b1 * st.curv_m + (1 - b1) * g
+    v = b2 * st.curv_v + (1 - b2) * g * g
+    mhat = m / (1 - b1 ** t.float())
+    vhat = v / (1 - b2 ** t.float())
+    c_new = base.curvature - config.curvature_lr * mhat / (
+        torch.sqrt(vhat) + eps)
+    c_new = torch.clamp(c_new, config.curvature_min, config.curvature_max)
+    # Distances scale by 1/sqrt(c): cached candidate distances are rescaled,
+    # not recomputed (exact under the distance-scale curvature model).
+    scale = torch.sqrt(base.curvature / c_new)
+    best_dist = torch.where(torch.isfinite(base.best_dist),
+                            base.best_dist * scale, base.best_dist)
+    return dataclasses.replace(
+        st, base=dataclasses.replace(base, curvature=c_new,
+                                     best_dist=best_dist),
+        q_dist=st.q_dist * scale, curv_m=m, curv_v=v, curv_t=t,
+        curv_last=torch.full_like(st.curv_last, nm))
+
+
+# -------------------------------------------------------------------- step
+
+def _check_corpus_only(config: EnhancedConfig) -> None:
+    if config.use_dense_channel or not config.needs_corpus:
+        raise NotImplementedError(
+            "the dense candidate channel (kernel K2) is not ported yet; the "
+            "port trains corpus-only configurations (use_dense_channel=False "
+            "with a corpus and a corpus-scored feature)")
+
+
+def enhanced_step(st: EnhancedState, config: EnhancedConfig,
+                  sampler) -> EnhancedState:
+    """One scored step: merge up to ``merge_batch`` queue candidates.
+
+    The plain version of kernel K1. Buffers update in place; the returned
+    state carries the new scalars.
+    """
+    _check_corpus_only(config)
+    base = st.base
+    dev = base.emb.device
+    if config.use_hierarchical:
+        # Phase = f(merge count), with the phase threshold applied on entry.
+        thr_tab = torch.tensor(config.phase_thresholds, dtype=torch.float32,
+                               device=dev)
+        nm = base.num_merges
+        phase = (1 + (nm >= config.phase2_step).int()
+                 + (nm >= config.phase3_step).int())
+        threshold = torch.where(phase != st.phase,
+                                thr_tab[torch.clamp(phase - 1, 0, 2).long()],
+                                base.threshold)
+        st = dataclasses.replace(
+            st, base=dataclasses.replace(base, threshold=threshold),
+            phase=phase)
+    if config.use_adaptive_curvature:
+        st = _maybe_update_curvature(st, config, sampler)
+    base = st.base
+
+    # Consume-on-read from the current phase's score-sorted queue: its first
+    # nb valid entries are the top-nb candidates of the whole table.
+    pidx = int(torch.clamp(st.phase - 1, 0, 2))
+    nb = max(1, config.merge_batch)
+    k = config.queue_size
+    qs = st.q_score[pidx]
+    qd = st.q_dist[pidx]
+    live = qs > -INF
+    valid = live & (qd < base.threshold)
+    n_valid = int(valid.sum())
+    consumed_any = bool(base.num_merges > st.corpus_synced)
+    # A truncated queue that can no longer fill a batch may hide better
+    # candidates in the full table; a fully consumed queue can only be
+    # refilled by a sync (the merges made new corpus pairs).
+    need_rs = ((int(st.q_valid_total[pidx]) > k and consumed_any
+                and n_valid < nb)
+               or (int(live.sum()) == 0 and consumed_any))
+
+    prev_merges = base.num_merges
+    if need_rs:
+        st = dataclasses.replace(st, needs_resync=torch.ones_like(
+            st.needs_resync))
+    else:
+        pos = torch.nonzero(valid).flatten()[:nb]
+        n_apply = min(pos.shape[0],
+                      config.base.max_vocab_size - int(base.vocab_size))
+        if n_apply > 0:
+            pos = pos[:n_apply]
+            ii = st.q_i[pidx, pos].long()
+            jj = st.q_j[pidx, pos].long()
+            slot = base.vocab_size.long() + torch.arange(n_apply, device=dev)
+            st.token_hash[slot] = scoring.compose_hash(
+                st.token_hash[ii], st.token_hash[jj], st.byte_lengths[jj],
+                st.hash_powers)
+            st.byte_lengths[slot] = st.byte_lengths[ii] + st.byte_lengths[jj]
+            st.has_vowel[slot] = st.has_vowel[ii] | st.has_vowel[jj]
+            # Consume every applied ordered pair in ALL phase queues.
+            hit = ((st.q_i[..., None] == ii.int()) & (st.q_j[..., None]
+                                                       == jj.int())).any(-1)
+            st.q_score[hit] = -INF
+            base = insert_batch(base, ii, jj, qd[pos])
+        else:
+            empty = base.empty_rounds + 1
+            if config.base.adaptive_threshold:
+                grow = empty >= config.base.empty_growth_after
+                threshold = torch.clamp_max(torch.where(
+                    grow, base.threshold * config.base.empty_growth,
+                    base.threshold), THRESHOLD_CAP)
+                base = dataclasses.replace(
+                    base, threshold=threshold,
+                    empty_rounds=torch.where(grow, torch.zeros_like(empty),
+                                             empty))
+            else:
+                base = dataclasses.replace(
+                    base, empty_rounds=empty,
+                    stopped=empty >= config.base.empty_stop_after)
+
+    step = base.step + (0 if need_rs else 1)
+    threshold = base.threshold
+    every = config.base.threshold_growth_every
+    if config.base.adaptive_threshold and every > 0:
+        grow = (base.num_merges // every) > (prev_merges // every)
+        threshold = torch.clamp_max(torch.where(
+            grow, threshold * config.base.threshold_growth, threshold),
+            THRESHOLD_CAP)
+    full = base.vocab_size >= config.base.max_vocab_size
+    return dataclasses.replace(st, base=dataclasses.replace(
+        base, step=step, threshold=threshold, stopped=base.stopped | full))
+
+
+# ------------------------------------------------------------------- sync
+
+def sync_corpus(st: EnhancedState, config: EnhancedConfig,
+                sampler) -> EnhancedState:
+    """Replay un-synced merges onto the corpus, rebuild the pair table and
+    the candidate queues."""
+    if not config.needs_corpus:
+        return st
+    if config.frozen_freqs:
+        # No corpus to replay: keep the restored counts, rescore the queues
+        # against the current embeddings and curvature.
+        return _sync_finish(st, config, sampler, st.corpus, st.pair_keys,
+                            st.pair_counts, st.pair_unique, st.max_pair_count)
+    base = st.base
+    replay = (scoring.batch_rank_replay if config.priority_replay
+              else scoring.batch_fixpoint_replay)
+    start = int(st.corpus_synced)
+    corpus = replay(st.corpus, base.merges, start,
+                    int(base.num_merges) - start, config.n_init)
+    keys, counts, n_unique, max_count = scoring.build_pair_table(
+        corpus, config.freq_table_size)
+    return _sync_finish(st, config, sampler, corpus, keys, counts, n_unique,
+                        max_count)
+
+
+def _sync_finish(st: EnhancedState, config: EnhancedConfig, sampler,
+                 corpus, keys, counts, n_unique, max_count) -> EnhancedState:
+    """Scores and candidate queues from a fresh pair table."""
+    base = st.base
+    samples = sampler.coherence(config.coherence_samples,
+                                max(int(base.vocab_size), 1))
+    corpus_tokens = (st.corpus_tokens if config.frozen_freqs
+                     else scoring.corpus_token_count(corpus))
+    st = dataclasses.replace(
+        st, coh_samples=samples.to(torch.int32), corpus=corpus,
+        corpus_synced=base.num_merges.clone(), corpus_tokens=corpus_tokens,
+        pair_keys=keys, pair_counts=counts, max_pair_count=max_count,
+        pair_unique=n_unique)
+
+    # Self-pairs (a, a) are real corpus candidates ('aa' from doubled
+    # letters); only the sentinel rows are excluded.
+    valid = keys[:, 0] != scoring.PKEY_SENT
+    rows = torch.where(valid, keys[:, 0], 0).long()
+    cols = torch.where(valid, keys[:, 1], 0).long()
+    dists = L.distance(base.emb[rows], base.emb[cols], base.curvature)
+    dists = torch.where(valid, dists, INF)
+
+    score3 = _full_scores(st, config, rows, cols, dists, counts)
+    ok = valid & (counts >= config.min_pair_freq)
+    if config.base.max_token_len > 0:
+        ok &= (base.lengths[rows] + base.lengths[cols]
+               <= config.base.max_token_len)
+    score3 = torch.where(ok[:, None], score3, -INF)
+    if config.frozen_freqs:
+        # Restored counts can carry historical pairs; a live corpus cannot
+        # (replay removes every adjacency of a merged pair).
+        nm = int(base.num_merges)
+        consumed = scoring.in_sorted_pair_set(
+            keys[:, 0], keys[:, 1], *_sorted_history(base.merges[:nm]),
+            nm) & valid
+        score3 = torch.where(consumed[:, None], -INF, score3)
+
+    k = config.queue_size
+    if config.use_hierarchical:
+        top_vals, top_pos = scoring.top_k_desc(score3.T.contiguous(), k)
+        q_valid_total = (score3 > -INF).sum(dim=0).to(torch.int32)
+    else:
+        # Without the curriculum the three phase columns are identical.
+        tv1, tp1 = scoring.top_k_desc(score3[:, :1].T.contiguous(), k)
+        top_vals = tv1.expand(3, k).contiguous()
+        top_pos = tp1.expand(3, k)
+        q_valid_total = (score3[:, 0] > -INF).sum().to(torch.int32).expand(3)
+    stored = top_vals > -INF
+    return dataclasses.replace(
+        st,
+        q_i=torch.where(stored, rows[top_pos], -1).to(torch.int32),
+        q_j=torch.where(stored, cols[top_pos], -1).to(torch.int32),
+        q_dist=torch.where(stored, dists[top_pos], INF),
+        q_score=top_vals, q_valid_total=q_valid_total.contiguous(),
+        needs_resync=torch.zeros_like(st.needs_resync))
+
+
+def _sorted_history(pairs: torch.Tensor):
+    """Merge-history pairs as lex-sorted (hi, lo) lanes."""
+    order = torch.argsort((pairs[:, 0].long() << 32) | pairs[:, 1].long())
+    return pairs[order, 0], pairs[order, 1]
+
+
+# ------------------------------------------------------------------ chunk
+
+def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
+                 sampler) -> tuple[EnhancedState, int]:
+    """One chunk: merge up to ``n_steps`` tokens, re-syncing the corpus
+    statistics as often as the candidate queues demand.
+
+    Returns the state and the number of syncs the chunk took. Each sync is
+    followed by kernel segments on the card, or by the plain step loop for a
+    state on the CPU (``ops/cuda/enhanced_loop.run_chunk``).
+    """
+    if (config.use_dense_channel or not config.needs_corpus) and \
+            bool(st.base.best_dist[0] == -INF):
+        raise ValueError(
+            "dense candidate channel requested but best_dist is poisoned: "
+            "this state was built for corpus-only training, which never "
+            "maintains the dense-candidate arrays. Keep "
+            "use_dense_channel=False with a corpus.")
+    _check_corpus_only(config)
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop
+    remaining = n_steps
+    before = int(st.base.num_merges)
+    rounds = 0
+    while True:
+        st = enhanced_loop.run_chunk(st, config, remaining, sampler)
+        rounds += 1
+        now = int(st.base.num_merges)
+        remaining -= now - before
+        before = now
+        if remaining <= 0 or bool(st.base.stopped):
+            break
+        if not bool(st.needs_resync):
+            break  # candidate drought / step cap: the caller decides
+    return st, rounds
+
+
+def state_scalars(st: EnhancedState) -> dict:
+    """The loop-control scalars, read to the host in one transfer."""
+    names = ("vocab_size", "num_merges", "step", "stopped")
+    vals = torch.stack([getattr(st.base, n).to(torch.int64) for n in names]
+                       + [st.needs_resync.to(torch.int64),
+                          st.curv_last.to(torch.int64)]).tolist()
+    return dict(zip(names + ("needs_resync", "curv_last"), vals))
+

@@ -1,0 +1,314 @@
+"""Corpus and scoring primitives of the enhanced merge loop, in PyTorch.
+
+Port of ``hyptokenizer_tpu/tokenizer/scoring.py`` (see its docstring for
+the design: an int32 id corpus replayed at chunk boundaries, a sorted
+pair-count table, token strings represented on the device by composable
+rolling hashes). The JAX package builds its scans from blocked pieces and
+its sorts from packed keys to keep XLA compile times down; here
+``torch.sort``, ``torch.cumsum``/``cummax``, ``torch.unique_consecutive``
+and ``torch.searchsorted`` do the same work directly, with identical
+results (ties included).
+
+Every function keeps its inputs' device. Hashes and ids are int32, as in
+the JAX package; pair keys are widened to int64 only inside a function.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+PAD_ID = -1   # corpus hole / tail
+SEP_ID = -2   # line or segment separator: breaks adjacency, survives compaction
+
+# Two 15-bit-prime rolling hashes packed into one int32 key (every modular
+# product stays below 2^30; the packed key below 2^31 - 1).
+HASH_P1 = 32749
+HASH_P2 = 32719
+HASH_B1 = 257
+HASH_B2 = 263
+MAX_HASH_LEN = 4096
+HKEY_SENT = 2**31 - 1   # sorted hash-table pad
+
+PKEY_SENT = 2**31 - 1   # pair-table sentinel, in both lanes
+PACK_MAX_ID = 65535     # ids <= 65534 pack into one order-preserving int32
+_I32_MIN = -2**31
+_KEY_SENT64 = (PKEY_SENT << 32) | PKEY_SENT  # int64 image of a sentinel row
+
+
+def hash_powers(max_len: int = MAX_HASH_LEN, device=None) -> torch.Tensor:
+    """Power tables ``B^k mod p`` for both primes, shape (2, max_len) int32."""
+    def powers(b, p):
+        out = np.empty((max_len,), np.int32)
+        acc = 1
+        for k in range(max_len):
+            out[k] = acc
+            acc = (acc * b) % p
+        return out
+
+    return torch.from_numpy(np.stack([powers(HASH_B1, HASH_P1),
+                                      powers(HASH_B2, HASH_P2)])).to(device)
+
+
+def hash_string(s: str):
+    """Host-side hash of a string (equals the device-side composition)."""
+    h1 = 0
+    h2 = 0
+    for ch in s.encode("utf-8"):
+        h1 = (h1 * HASH_B1 + ch) % HASH_P1
+        h2 = (h2 * HASH_B2 + ch) % HASH_P2
+    return h1, h2
+
+
+def pack_hash(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """Pack the two residues into one int32 lookup key (< 2^31 - 1)."""
+    return (h1 * 65536 + h2).to(torch.int32)
+
+
+def compose_hash(h_i: torch.Tensor, h_j: torch.Tensor,
+                 byte_len_j: torch.Tensor, powers: torch.Tensor
+                 ) -> torch.Tensor:
+    """hash(a+b) from hash(a), hash(b) and len_bytes(b). Shapes (..., 2)."""
+    idx = torch.clamp_max(byte_len_j, MAX_HASH_LEN - 1).long()
+    c1 = (h_i[..., 0] * powers[0, idx] + h_j[..., 0]) % HASH_P1
+    c2 = (h_i[..., 1] * powers[1, idx] + h_j[..., 1]) % HASH_P2
+    return torch.stack([c1, c2], dim=-1).to(torch.int32)
+
+
+def in_sorted_set(keys: torch.Tensor, table: torch.Tensor,
+                  table_size) -> torch.Tensor:
+    """Membership of int32 keys in a sorted int32 table (HKEY_SENT padded)."""
+    pos = torch.searchsorted(table, keys.contiguous())
+    pos = torch.clamp_max(pos, table.shape[0] - 1)
+    return (table[pos] == keys) & (pos < table_size)
+
+
+# ------------------------------------------------------------------ pair keys
+
+def pack_lex(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int32 key whose int32 order is the lexicographic (hi, lo) order.
+
+    ``hi*65536 + lo`` as an unsigned bit pattern with its sign bit flipped,
+    which is ``u - 2^31``. Sentinel rows map to PKEY_SENT. Requires ids in
+    [0, 65534] for real rows."""
+    u = hi.long() * 65536 + lo.long()
+    k = (u - 2**31).to(torch.int32)
+    return torch.where(hi == PKEY_SENT, torch.full_like(k, PKEY_SENT), k)
+
+
+def unpack_lex(k: torch.Tensor):
+    """Inverse of :func:`pack_lex` (sentinel-preserving)."""
+    u = k.long() + 2**31
+    hi = (u >> 16).to(torch.int32)
+    lo = (u & 0xFFFF).to(torch.int32)
+    sent = k == PKEY_SENT
+    fill = torch.full_like(hi, PKEY_SENT)
+    return torch.where(sent, fill, hi), torch.where(sent, fill, lo)
+
+
+def _key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 key with the lexicographic order of the (hi, lo) int32 lanes."""
+    return (hi.long() << 32) | lo.long()
+
+
+def _shift_right(x: torch.Tensor, fill) -> torch.Tensor:
+    """``x`` moved one place right (``x[i-1]`` at ``i``), ``fill`` at 0."""
+    return torch.cat([torch.full_like(x[:1], fill), x[:-1]])
+
+
+def _shift_left(x: torch.Tensor, fill) -> torch.Tensor:
+    """``x`` moved one place left (``x[i+1]`` at ``i``), ``fill`` at the end."""
+    return torch.cat([x[1:], torch.full_like(x[:1], fill)])
+
+
+def _adjacent_pair_keys(c: torch.Tensor):
+    """(hi, lo, valid) for each adjacent corpus pair; sentinel where either
+    side is PAD/SEP."""
+    nxt = _shift_left(c, PAD_ID)
+    valid = (c >= 0) & (nxt >= 0)
+    sent = torch.full_like(c, PKEY_SENT)
+    return torch.where(valid, c, sent), torch.where(valid, nxt, sent), valid
+
+
+def lookup_pair_counts(q_hi: torch.Tensor, q_lo: torch.Tensor,
+                       table_keys: torch.Tensor,
+                       table_counts: torch.Tensor) -> torch.Tensor:
+    """Counts for (hi, lo) pair keys in a sorted (T, 2) table (0 if absent)."""
+    tk = _key64(table_keys[:, 0], table_keys[:, 1])
+    q = _key64(q_hi.to(torch.int32), q_lo.to(torch.int32))
+    pos = torch.clamp_max(torch.searchsorted(tk, q), tk.shape[0] - 1)
+    return torch.where(tk[pos] == q, table_counts[pos],
+                       torch.zeros_like(table_counts[pos]))
+
+
+def in_sorted_pair_set(q_hi, q_lo, t_hi, t_lo, table_size) -> torch.Tensor:
+    """Membership of (hi, lo) keys in a lex-sorted two-lane table whose first
+    ``table_size`` rows are real."""
+    in_tbl = torch.arange(t_hi.shape[0], device=t_hi.device) < table_size
+    tk = torch.where(in_tbl, _key64(t_hi, t_lo),
+                     torch.full_like(t_hi, _KEY_SENT64, dtype=torch.int64))
+    q = _key64(q_hi.to(torch.int32), q_lo.to(torch.int32))
+    pos = torch.clamp_max(torch.searchsorted(tk, q), tk.shape[0] - 1)
+    return (tk[pos] == q) & (q != _KEY_SENT64)
+
+
+# --------------------------------------------------------------- corpus ops
+
+def compact_corpus(corpus: torch.Tensor) -> torch.Tensor:
+    """Move non-PAD entries to the front, in order; PAD-fill the tail."""
+    out = torch.full_like(corpus, PAD_ID)
+    live = corpus[corpus != PAD_ID]
+    out[:live.shape[0]] = live
+    return out
+
+
+def corpus_token_count(corpus: torch.Tensor) -> torch.Tensor:
+    return torch.sum(corpus >= 0).to(torch.int32)
+
+
+def _match_rules(hi, lo, valid, merges, start: int, count: int, n_init: int):
+    """Merged-token id for each pair key under rules [start, start+count),
+    or -1. A key matched by several rules takes the largest id, as the JAX
+    package's max-reduction does (a pair is never merged twice, so it does
+    not arise in training)."""
+    rules = merges[start:start + count]
+    rid = n_init + start + torch.arange(count, device=merges.device,
+                                        dtype=torch.int32)
+    ok = rules[:, 0] >= 0
+    rk = _key64(rules[ok, 0], rules[ok, 1])
+    rid = rid[ok]
+    order = torch.argsort(rk, stable=True)
+    rk = rk[order]
+    rid = rid[order]
+    if rk.shape[0] == 0:
+        return torch.full_like(hi, -1)
+    q = _key64(hi, lo)
+    pos = torch.searchsorted(rk, q, right=True) - 1
+    posc = torch.clamp_min(pos, 0)
+    hit = valid & (pos >= 0) & (rk[posc] == q)
+    return torch.where(hit, rid[posc], torch.full_like(hi, -1))
+
+
+def _parity_take(m: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Within each run of consecutive True in ``m``, every other entry from
+    the run head (greedy left-to-right non-overlapping application)."""
+    run_start = m & ~_shift_right(m, False)
+    start_idx = torch.where(run_start, idx, torch.full_like(idx, -1))
+    last_start = torch.cummax(start_idx, dim=0).values
+    return m & (((idx - last_start) % 2) == 0)
+
+
+def _replay(corpus, merges, start: int, count: int, n_init: int, select):
+    """Passes of match -> select -> substitute -> compact, to fixpoint.
+
+    One pass is complete unless some rule in the window has an operand made
+    inside the window (a within-chunk chain), as in the JAX package."""
+    if count <= 0:
+        return corpus
+    window = merges[start:start + count]
+    can_chain = bool(torch.any(window.max(dim=1).values >= n_init + start))
+    idx = torch.arange(corpus.shape[0], device=corpus.device,
+                       dtype=torch.int32)
+    c = corpus
+    while True:
+        hi, lo, valid = _adjacent_pair_keys(c)
+        mid = _match_rules(hi, lo, valid, merges, start, count, n_init)
+        m = mid >= 0
+        applied = select(m, mid, idx)
+        out = torch.where(applied, mid, c)
+        out = torch.where(_shift_right(applied, False),
+                          torch.full_like(out, PAD_ID), out)
+        c = compact_corpus(out)
+        if not can_chain or not bool(torch.any(applied)):
+            return c
+
+
+def batch_fixpoint_replay(corpus: torch.Tensor, merges: torch.Tensor,
+                          start: int, count: int, n_init: int
+                          ) -> torch.Tensor:
+    """Apply merges [start, start+count) as one rule table to fixpoint, the
+    leftmost match winning (the reference's ``tokenize()`` semantics)."""
+    return _replay(corpus, merges, start, count, n_init,
+                   lambda m, mid, idx: _parity_take(m, idx))
+
+
+def _select_matching(m: torch.Tensor, pri: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """Maximal matching by (rank, position): rounds of local minima."""
+    big = 2**31 - 1
+    alive = m
+    sel = torch.zeros_like(m)
+    while bool(torch.any(alive)):
+        p = torch.where(alive, pri, torch.full_like(pri, big))
+        cand = alive & (p <= _shift_right(p, big)) & (p <= _shift_left(p, big))
+        take = _parity_take(cand, idx)
+        sel = sel | take
+        near = take | _shift_right(take, False) | _shift_left(take, False)
+        alive = alive & ~near
+    return sel
+
+
+def batch_rank_replay(corpus: torch.Tensor, merges: torch.Tensor,
+                      start: int, count: int, n_init: int) -> torch.Tensor:
+    """Apply merges [start, start+count) in rank order (classic BPE), which
+    equals the priority-mode encoder (``encode.tokenize_priority_py``)."""
+    return _replay(corpus, merges, start, count, n_init,
+                   lambda m, mid, idx: _select_matching(m, mid, idx))
+
+
+# ------------------------------------------------------- pair count snapshot
+
+def build_pair_table(corpus: torch.Tensor, table_size: int):
+    """Sorted (pair key, count) snapshot of adjacent-pair frequencies.
+
+    Returns ``(keys (T, 2) int32, counts (T,) int32, n_unique, max_count)``
+    with the lexicographically first ``table_size`` pairs; unused slots hold
+    (PKEY_SENT, PKEY_SENT) and 0. ``n_unique`` counts every unique pair
+    before the clip, so ``n_unique > table_size`` says pairs were dropped.
+    """
+    hi, lo, _ = _adjacent_pair_keys(corpus)
+    sk = torch.sort(_key64(hi, lo)).values
+    uniq, cnt = torch.unique_consecutive(sk, return_counts=True)
+    real = uniq != _KEY_SENT64
+    uniq = uniq[real]
+    cnt = cnt[real]
+    n_unique = uniq.shape[0]
+    keep = min(n_unique, table_size)
+    dev = corpus.device
+    keys = torch.full((table_size, 2), PKEY_SENT, dtype=torch.int32,
+                      device=dev)
+    counts = torch.zeros((table_size,), dtype=torch.int32, device=dev)
+    keys[:keep, 0] = (uniq[:keep] >> 32).to(torch.int32)
+    keys[:keep, 1] = (uniq[:keep] & 0xFFFFFFFF).to(torch.int32)
+    counts[:keep] = cnt[:keep].to(torch.int32)
+    return (keys, counts,
+            torch.tensor(n_unique, dtype=torch.int32, device=dev),
+            counts.max())
+
+
+def _f32_sortable(x: torch.Tensor) -> torch.Tensor:
+    """Monotone float32 -> int32 map (int32 order == float order; -0.0 just
+    below +0.0), as the JAX package's top-k ranks scores."""
+    b = x.contiguous().view(torch.int32)
+    return torch.where(b >= 0, b, (~b) ^ _I32_MIN)
+
+
+def top_k_desc(vals: torch.Tensor, k: int):
+    """Exact per-row top-k of a (P, T) float32 array: (values, indices),
+    values descending, ties to the lowest index; rows shorter than ``k`` are
+    padded with -inf and index T-1."""
+    p, t = vals.shape
+    kk = min(k, t)
+    # ~s reverses the order of the sortable image; a stable ascending sort
+    # then keeps equal values in index order.
+    order = torch.sort(~_f32_sortable(vals), dim=1, stable=True).indices
+    idx = order[:, :kk]
+    out = torch.gather(vals, 1, idx)
+    if kk < k:
+        out = torch.cat([out, torch.full((p, k - kk), -torch.inf,
+                                         dtype=vals.dtype,
+                                         device=vals.device)], dim=1)
+        idx = torch.cat([idx, torch.full((p, k - kk), t - 1,
+                                         dtype=idx.dtype,
+                                         device=idx.device)], dim=1)
+    return out, idx
