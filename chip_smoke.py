@@ -3,19 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once at full width: the corpus-only flagship
-tokenizer of ``bench.py`` ``bench_enhanced`` (50,176 vocabulary slots,
-d=100, the whole ``data/wiki_corpus.txt.bz2``) is constructed and trained
-for two 2048-merge chunks through ``EnhancedHyperbolicTokenizer`` and
-``optimize_merges``, then encodes corpus lines and round-trips through
-``save``/``load`` in a temporary directory. Phases:
+Drives the port's two main paths once at full width (50,176 vocabulary
+slots, d=100, the whole ``data/wiki_corpus.txt.bz2``), through
+``EnhancedHyperbolicTokenizer``, ``optimize_merges``, ``encode`` and
+``save``/``load`` in a temporary directory:
 
-1. watchdog, card line, kernel build (nvcc, route ``.so`` + ctypes);
-2. the main path, with every kernel's launch count reset just before it
-   and read just after; each kernel must have launched;
+* the corpus-only flagship of ``bench.py`` ``bench_enhanced``, two
+  2048-merge chunks (kernel K1);
+* the all-features configuration of ``bench.py`` ``bench_allfeatures``
+  (dense channel, hierarchical curriculum, compression, adaptive curvature
+  every 100 merges), 6144 merges across both phase transitions, then one
+  more 512-merge chunk after ``load`` (kernels K3 in the constructors and
+  K2 in training).
+
+Phases:
+
+1. watchdog, card line, kernel build (one nvcc per source, in parallel;
+   route ``.so`` + ctypes);
+2. each main path, with every kernel's launch count reset just before it
+   and read just after; each kernel of the path must have launched;
 3. each kernel against its plain PyTorch version on the same inputs, on
-   the card, at the main path's shapes (kernel K1: one segment from a
-   synced state; merge history exact, rows within ``ROW_ATOL``);
+   the card, at the main path's shapes: K1 on one segment from a synced
+   state (merge history exact, rows within ``ROW_ATOL``); K2 by lockstep
+   with oracle resync, step by step over 4 segments from the all-features
+   state (``evals/selfcheck._lockstep_steps``: merges as the JAX protocol
+   compares them, rows within ``ROW_ATOL`` plus their float32 conditioning,
+   candidate grams within their float32 rounding bound); K3 at full
+   activity (distances within ``DIST_ATOL``, partners equal except at ties
+   within it);
 4. a ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 
@@ -31,6 +46,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import torch
 
@@ -43,7 +59,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(HERE, "data", "wiki_corpus.txt.bz2")
 TRAIN_STEPS = 4096
 LOG_EVERY = 2048
+ALL_STEPS = 6144         # the all-features path crosses merges 1000 and 6000
+ALL_AFTER_LOAD = 512
 ROW_ATOL = 1e-5          # fp32 rows: summation order differs (kernel note)
+DIST_ATOL = 1e-5         # K3: tests/test_pallas_pairwise.py's rule
+LOCKSTEP_SEGMENTS = 4   # K2 held to its plain version step by step
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 H100_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 
@@ -55,6 +75,16 @@ FLAGSHIP = dict(
     use_adaptive_curvature=True, optimize_curvature_freq=1000,
     use_dense_channel=False, min_pair_freq=1, merge_batch=16,
     corpus_max_tokens=2_900_000, merge_policy="priority", seed=0)
+
+# bench.py bench_allfeatures (:182-199): the all-features configuration,
+# no pre-split, the default "fixpoint" merge policy.
+ALL_FEATURES = dict(
+    max_vocab_size=50_176, merge_threshold=0.5,
+    use_frequency_aware=True, alpha=0.4, beta=0.4, gamma=0.2,
+    use_hierarchical=True, use_compression_aware=True,
+    use_adaptive_curvature=True, optimize_curvature_freq=100,
+    use_dense_channel=True, min_pair_freq=1, merge_batch=16,
+    corpus_max_tokens=2_900_000, freq_table_size=1 << 18, seed=0)
 
 
 def fail(msg: str) -> None:
@@ -122,10 +152,11 @@ def main_path(lines, device="cuda"):
                                     for s in tok.training_stats])
 
 
-def check_trained(tok, lines, device="cuda") -> None:
+def check_trained(tok, lines, device="cuda"):
     """What came out is right: finite rows of the expected shape, token
     features equal to the host's recomputation from the vocabulary strings,
-    lossless encode, and identical encodes after save/load."""
+    lossless encode, and identical encodes after save/load. Returns the
+    loaded tokenizer."""
     from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
     from hyptokenizer_tpu_torch.tokenizer.enhanced import _token_features
 
@@ -158,6 +189,239 @@ def check_trained(tok, lines, device="cuda") -> None:
         fail("encode streams differ after save/load")
     if back.vocab != tok.vocab:
         fail("vocabulary differs after save/load")
+    return back
+
+
+def main_path_all(lines, device="cuda"):
+    """The all-features path: construct (K3), train ``ALL_STEPS`` merges
+    across both phase transitions (K2), check the outputs, save/load, and
+    train ``ALL_AFTER_LOAD`` more merges after load. Returns the tokenizer,
+    the state the constructor built (for the K2 check) and the phase's
+    numbers."""
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+    from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    dev = torch.device(device)
+    chars = sorted({ch for ln in lines for ch in ln})
+    vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + chars
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    emb = L.random_points(gen, len(vocab), 100, sigma=0.5, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    K12.reset_launches()
+    K3.reset_launches()
+    t0 = time.perf_counter()
+    tok = EnhancedHyperbolicTokenizer(vocab, emb, device=dev,
+                                      corpus_sample=lines, **ALL_FEATURES)
+    sync()
+    ctor_s = time.perf_counter() - t0
+    start = E.clone_state(tok.enh_state)
+
+    t0 = time.perf_counter()
+    tok.optimize_merges(steps=ALL_STEPS, log_every=LOG_EVERY,
+                        target_vocab_size=50_000,
+                        phase_transition_steps={2: 1000, 3: 6000})
+    sync()
+    train_s = time.perf_counter() - t0
+    merges = len(tok.merge_history)
+    if merges < ALL_STEPS or merges != int(tok.state.num_merges):
+        fail(f"all-features path trained {merges} merges (device "
+             f"{int(tok.state.num_merges)}), expected {ALL_STEPS}")
+    if tok.current_phase != 3:
+        fail(f"all-features path ended in phase {tok.current_phase}, not 3")
+    curvature = float(tok.state.curvature)
+    if curvature == 1.0 or curvature != curvature:
+        fail(f"curvature {curvature} was not trained")
+
+    back = check_trained(tok, lines, device)
+    t0 = time.perf_counter()
+    back.optimize_merges(steps=ALL_AFTER_LOAD, log_every=ALL_AFTER_LOAD)
+    sync()
+    after_s = time.perf_counter() - t0
+    n_after = len(back.merge_history) - merges
+    v = int(back.state.vocab_size)
+    if n_after < ALL_AFTER_LOAD or v != len(back.vocab) or \
+            not bool(torch.isfinite(back.state.emb[:v]).all()):
+        fail(f"training after load made {n_after} merges (expected "
+             f"{ALL_AFTER_LOAD}) or non-finite rows")
+    launches = {"enhanced_loop_dense": K12.dense_launches,
+                "pairwise_min_best": K3.launches}
+    return tok, start, dict(
+        ctor_s=ctor_s, train_s=train_s, merges=merges,
+        merges_per_s=merges / train_s, phase=tok.current_phase,
+        curvature=curvature, after_load_s=after_s,
+        after_load_merges=n_after, launches=launches,
+        corpus_only_launches=K12.launches,
+        chunk_syncs=[s["chunk_syncs"] for s in tok.training_stats],
+        chunk_seconds=[round(s["chunk_seconds"], 4)
+                       for s in tok.training_stats])
+
+
+def plain_segment(st, cfg, budgets):
+    """The plain version of one segment (``enhanced_step`` looped to the
+    kernel's halt conditions), recording per step the rows below the
+    post-batch vocabulary and the merges made."""
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    per_step = []
+    sc = E.state_scalars(st)
+    for _ in range(K12.SEGMENT_STEPS):
+        if K12._halted(sc, *budgets):
+            break
+        st = E.enhanced_step(st, cfg, None)
+        now = E.state_scalars(st)
+        per_step.append((now["vocab_size"],
+                         now["num_merges"] - sc["num_merges"]))
+        sc = now
+    return st, per_step
+
+
+def check_k2(tok, start):
+    """Kernel K2 against its plain version: step-by-step lockstep with
+    oracle resync over ``LOCKSTEP_SEGMENTS`` segments from the all-features
+    constructor's state (``evals/selfcheck._lockstep_steps``), then one
+    segment of each timed from the same synced state."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    cfg = tok.enh_config
+    out = {}
+    holder = types.SimpleNamespace(enh_state=start, enh_config=cfg)
+    selfcheck._lockstep_steps(holder, LOCKSTEP_SEGMENTS, out, "k2",
+                              row_atol=ROW_ATOL)
+    if out["k2"] != "pass":
+        fail(f"K2 lockstep against its plain version: {out['k2']}")
+
+    st0 = E.sync_corpus(E.clone_state(start), cfg, E.TorchSampler(1, "cuda"))
+    sc = E.state_scalars(st0)
+    freq = cfg.curvature_freq
+    budgets = (sc["num_merges"] + LOG_EVERY,
+               sc["step"] + LOG_EVERY + 1024,
+               (sc["curv_last"] // freq + 1) * freq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, per_step = plain_segment(E.clone_state(st0), cfg, budgets)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n = sum(m for _, m in per_step)
+    if n <= 0:
+        fail("the K2 timing segment merged nothing")
+
+    reps = 5
+    clones = [E.clone_state(st0) for _ in range(reps + 1)]
+    K12.run_segment_cuda(clones.pop(), cfg, *budgets)      # warm-up
+    torch.cuda.synchronize()
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    for c in clones:
+        K12.run_segment_cuda(c, cfg, *budgets)
+    end_ev.record()
+    torch.cuda.synchronize()
+    ms = start_ev.elapsed_time(end_ev) / reps
+
+    d1 = st0.base.emb.shape[1]
+    fold_rows = sum(v for v, _ in per_step)
+    nbytes = K12.segment_bytes(st0, cfg, n, fold_rows)
+    steps = len(per_step)
+    # K1's queue work, plus per step the argmin (a compare per row) and the
+    # fold (a d1-long dot per row and new column).
+    ops = (steps * cfg.queue_size * 2 + n * (3 * cfg.queue_size + 12 * d1)
+           + sum(v * (1 + 2 * d1 * m) for v, m in per_step))
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return dict(
+        name="enhanced_loop_dense", route="cuda",
+        source="hyptokenizer_tpu_torch/ops/cuda/csrc/enhanced_loop.cu",
+        replaces="hyptokenizer_tpu/ops/pallas/enhanced_loop.py:156",
+        checked=True, max_abs_err=out["k2_row_err"], ms=ms,
+        plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None, segment_merges=n, segment_steps=steps,
+        segment_bytes=nbytes, lockstep=out["k2"],
+        lockstep_merges=out["k2_merges"], lockstep_steps=out["k2_steps"],
+        reorders=out["k2_reorders"], dist_ties=out["k2_dist_ties"],
+        partner_ties=out["k2_partner_ties"],
+        row_err_over_tol=out["k2_row_err_over_tol"],
+        gram_gap_over_bound=out["k2_gram_gap_over_bound"])
+
+
+def check_k3(ctor_vocab: int):
+    """Kernel K3 against its plain version at full activity (50,176 random
+    points, d=100, c=1), and its time at the constructor's active prefix."""
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+
+    max_v, d = 50_176, 100
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    emb = L.random_points(gen, max_v, d, sigma=0.5, device="cuda")
+    c = torch.tensor(1.0, device="cuda")
+
+    def timed(fn, reps):
+        fn()                                   # warm-up
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b) / reps
+
+    (bd, bj), ms = timed(lambda: K3.pairwise_min_best(emb, max_v, c), 3)
+    t0 = time.perf_counter()
+    bd0, bj0 = K3.pairwise_min_best_plain(emb, max_v, c)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fin = torch.isfinite(bd0)
+    if not torch.equal(torch.isfinite(bd), fin):
+        fail("K3 leaves other rows without a candidate than its plain "
+             "version")
+    err = float((bd[fin] - bd0[fin]).abs().max())
+    if not err <= DIST_ATOL:
+        fail(f"K3 distances differ by {err} (limit {DIST_ATOL})")
+    rows = torch.nonzero(bj != bj0).flatten()
+    e64 = emb.double()
+    sig = torch.ones(d + 1, dtype=torch.float64, device="cuda")
+    sig[1:] = -1.0
+
+    def dist(i, j):
+        g = torch.clamp_min((e64[i] * sig * e64[j]).sum(-1), 1.0)
+        return torch.acosh(g)
+
+    gap = (dist(rows, bj[rows].long()) - dist(rows, bj0[rows].long())).abs()
+    if rows.numel() and not float(gap.max()) <= DIST_ATOL:
+        fail(f"K3 partners differ from the plain version beyond a tie on "
+             f"{int((gap > DIST_ATOL).sum())} rows")
+
+    small = torch.zeros_like(emb)
+    small[:ctor_vocab] = emb[:ctor_vocab]
+    _, ctor_ms = timed(lambda: K3.pairwise_min_best(small, ctor_vocab, c), 20)
+
+    flops = K3.pairwise_flops(max_v, d + 1)
+    nbytes = max_v * (d + 1) * 4 + max_v * 8
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_FP32_FLOPS * 1e3
+    return dict(
+        name="pairwise_min_best", route="cuda",
+        source="hyptokenizer_tpu_torch/ops/cuda/csrc/pairwise.cu",
+        replaces="hyptokenizer_tpu/ops/pallas/pairwise.py:44",
+        checked=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None, rows=max_v, ties=int(rows.numel()),
+        ctor_rows=ctor_vocab, ctor_ms=ctor_ms)
 
 
 def check_k1(tok):
@@ -303,8 +567,45 @@ def main() -> None:
           f"plain {k1['plain_ms']:.1f} ms, max_abs_err {k1['max_abs_err']}; "
           f"one full-size sync {k1['sync_ms']:.1f} ms",
           flush=True)
+    del tok
+
+    tok, start, alls = main_path_all(lines)
+    for name, n in alls["launches"].items():
+        if n <= 0:
+            fail(f"the all-features path never launched kernel {name}")
+    print(f"all-features: ctor_s {alls['ctor_s']:.3f} "
+          f"train_s {alls['train_s']:.3f} merges {alls['merges']} "
+          f"merges_per_s {alls['merges_per_s']:.1f} phase {alls['phase']} "
+          f"curvature {alls['curvature']:.6f} "
+          f"after_load {alls['after_load_merges']} merges in "
+          f"{alls['after_load_s']:.3f} s "
+          f"launches {json.dumps(alls['launches'])} "
+          f"(K1 {alls['corpus_only_launches']}) syncs {alls['chunk_syncs']} "
+          f"chunk_seconds {alls['chunk_seconds']}", flush=True)
+
+    k2 = check_k2(tok, start)
+    k2["launches"] = alls["launches"]["enhanced_loop_dense"]
+    print(f"K2 lockstep: {k2['lockstep']} over {k2['lockstep_merges']} "
+          f"merges in {k2['lockstep_steps']} steps, reorders "
+          f"{k2['reorders']} dist_ties {k2['dist_ties']} partner_ties "
+          f"{k2['partner_ties']} row_err_over_tol "
+          f"{k2['row_err_over_tol']:.3g} gram_gap_over_bound "
+          f"{k2['gram_gap_over_bound']:.3g}; "
+          f"segment of {k2['segment_merges']} merges in "
+          f"{k2['segment_steps']} steps: {k2['ms']:.3f} ms on the card "
+          f"({k2['ms'] / max(k2['segment_steps'], 1):.4f} ms per step), "
+          f"plain {k2['plain_ms']:.1f} ms, bound {k2['bound_ms']:.6f} ms "
+          f"({k2['bound_by']}), max_abs_err {k2['max_abs_err']}",
+          flush=True)
+    k3 = check_k3(int(start.base.vocab_size))
+    k3["launches"] = alls["launches"]["pairwise_min_best"]
+    print(f"K3 at {k3['rows']} active rows: {k3['ms']:.3f} ms on the card, "
+          f"plain {k3['plain_ms']:.1f} ms, bound {k3['bound_ms']:.3f} ms "
+          f"({k3['bound_by']}), max_abs_err {k3['max_abs_err']}, ties "
+          f"{k3['ties']}; at the constructor's {k3['ctor_rows']} rows "
+          f"{k3['ctor_ms']:.4f} ms", flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ key has no field here; the loop's draws come from a sampler (see
 
 :func:`enhanced_state_to_arrays` is the reverse, a nested dict of numpy
 arrays with the JAX package's field names and dtypes (minus ``key``).
+:func:`merge_state_from_arrays` and :func:`merge_state_to_arrays` do the
+same for a bare ``MergeState``.
 """
 
 from __future__ import annotations
@@ -31,14 +33,26 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
+def merge_state_from_arrays(src, device=None) -> MergeState:
+    """A ``MergeState`` on ``device`` from the JAX package's as numpy
+    arrays."""
+    dev = _device.resolve(device)
+    return MergeState(**{f.name: _tensor(_get(src, f.name), dev)
+                         for f in dataclasses.fields(MergeState)})
+
+
+def merge_state_to_arrays(st: MergeState) -> dict:
+    """{field: array} of numpy arrays."""
+    return {f.name: getattr(st, f.name).cpu().numpy()
+            for f in dataclasses.fields(MergeState)}
+
+
 def enhanced_state_from_arrays(src, device=None) -> EnhancedState:
     """An ``EnhancedState`` on ``device`` from the JAX package's state as
     numpy arrays."""
     dev = _device.resolve(device)
-    base = _get(src, "base")
     return EnhancedState(
-        base=MergeState(**{f.name: _tensor(_get(base, f.name), dev)
-                           for f in dataclasses.fields(MergeState)}),
+        base=merge_state_from_arrays(_get(src, "base"), dev),
         **{f.name: _tensor(_get(src, f.name), dev)
            for f in dataclasses.fields(EnhancedState) if f.name != "base"})
 
@@ -47,6 +61,5 @@ def enhanced_state_to_arrays(st: EnhancedState) -> dict:
     """{"base": {...}, field: array, ...} of numpy arrays."""
     out = {f.name: getattr(st, f.name).cpu().numpy()
            for f in dataclasses.fields(EnhancedState) if f.name != "base"}
-    out["base"] = {f.name: getattr(st.base, f.name).cpu().numpy()
-                   for f in dataclasses.fields(MergeState)}
+    out["base"] = merge_state_to_arrays(st.base)
     return out

@@ -1,21 +1,31 @@
-// Kernel K1: a segment of scored merge steps of the enhanced tokenizer's
-// corpus-only loop, in one launch.
+// Kernels K1 and K2: a segment of scored merge steps of the enhanced
+// tokenizer's loop, in one launch.
 //
-// Replaces the TPU kernel hyptokenizer_tpu/ops/pallas/enhanced_loop.py:156
-// (`_kernel`, corpus-only configuration: use_dense=False, g=1), reached there
-// through `_run_segment` and `_run_chunk_fused`. Semantics are those of the
-// plain version, hyptokenizer_tpu_torch/tokenizer/enhanced_state.py
-// `enhanced_step`, looped to the same halt conditions:
+// Replace the TPU kernel hyptokenizer_tpu/ops/pallas/enhanced_loop.py:156
+// (`_kernel`), reached there through `_run_segment` and `_run_chunk_fused`,
+// in its two configurations: K1 is the corpus-only one (use_dense=False,
+// `enhanced_loop_launch`), K2 the dense one (use_dense=True,
+// `enhanced_loop_dense_launch`). Both are instances of one template
+// (kDense). Semantics are those of the plain version,
+// hyptokenizer_tpu_torch/tokenizer/enhanced_state.py `enhanced_step`,
+// looped to the same halt conditions:
 //
-//   per step: [hierarchical phase from the merge count] -> rank the valid
-//   entries of the phase's score-sorted queue (score > -inf, dist < thr) by
-//   an exclusive block scan -> either flag a resync (truncated queue that
-//   cannot fill a batch, or a fully consumed queue) or merge the first
-//   `nb` entries: geodesic midpoint weighted by token length, re-projected,
-//   written at row vocab+t; history; length, composed int32 hash, byte
-//   length and vowel flag of the new token; every matching entry of all
-//   three phase queues set to -inf -> empty-round and periodic threshold
-//   growth -> stop when the vocabulary is full.
+//   per step: [hierarchical phase from the merge count] -> [K2: the dense
+//   candidate: block-wide argmin of best_dist over the active rows (lowest
+//   index on ties), its full score (pair count by binary search of the
+//   lexicographic pair table, coherence of its midpoint against the sync's
+//   samples, compression, morph/word membership of the composed hash)] ->
+//   rank the valid entries of the phase's score-sorted queue (score > -inf,
+//   dist < thr, [K2: not the dense pair]) by an exclusive block scan ->
+//   either flag a resync (truncated queue that cannot fill a batch, or
+//   [K1] a fully consumed queue) or merge the batch: the first `nb` queue
+//   entries [K2: with the dense candidate at its rank among them, dense
+//   first on ties]; geodesic midpoint weighted by token length,
+//   re-projected, written at row vocab+t; history; length, composed int32
+//   hash, byte length and vowel flag of the new token; every matching entry
+//   of all three phase queues set to -inf; [K2: rows whose tracked best was
+//   consumed set to inf, then the batched column fold] -> empty-round and
+//   periodic threshold growth -> stop when the vocabulary is full.
 //
 // The segment halts at `stopped`, at a resync, and at the merge budget, the
 // step budget and the next curvature event (`curv_stop`); the corpus sync
@@ -25,22 +35,38 @@
 // device memory (served from L2) and the loop scalars in shared memory.
 // Each applied merge of a batch is one warp (the midpoint needs only the
 // pre-batch rows, and a batch never refers to a token made in the same
-// batch). The 128-lane row layout, the sum-extraction reads and the prefix
-// sums done as matmuls of the TPU kernel are TPU workarounds and are gone.
+// batch). K2's fold stages the <= nb+1 new rows, signature-folded, in shared
+// memory; one thread per row r < vocab_post sums their grams with its row,
+// applies the length gate, and keeps a strict < in increasing slot order
+// (which gives the plain version's lowest-column tie break). It needs only
+// the rows below vocab_post, where the TPU kernel streams the whole padded
+// buffer; the output is the same. The 128-lane row layout, the
+// sum-extraction reads, the matmul prefix sums and the (g, 128, 128) fold
+// tiles of the TPU kernel are TPU workarounds and are gone.
 //
-// Bound. A serial chain of merge_batch-sized steps, each touching a few
+// Bound. K1: a serial chain of merge_batch-sized steps, each touching a few
 // K-entry queues and at most 2*nb+nb embedding rows: it moves far too few
 // bytes to be bandwidth-bound and is bound by the latency of its serial
-// steps (block barriers and dependent global reads). Making it fast
-// (several steps' queue scans in flight, a persistent kernel that also runs
-// the sync) is later work.
+// steps (block barriers and dependent global reads). K2 adds per step a read
+// of best_dist for the argmin and the fold: read the active rows' embeddings
+// (vocab_post x d1 x 4 B), their lengths and best_dist/best_j, write
+// best_dist/best_j; at a full 50,176-row vocabulary about 21.5 MB per step,
+// 6.4 us at 3.35 TB/s, above the fold's <= 17 x V x 101 x 2 FLOP at 67
+// TFLOP/s. One block on one SM cannot approach either: the one-block fold
+// gives up all but one SM's bandwidth and FFMA rate, knowingly. Spreading
+// it over the grid (a cooperative launch with grid sync, or a per-step fold
+// kernel) and making K1's steps faster are later work.
 //
 // Numerics: float32 with the log-form acosh and the JAX package's clamp
-// constants. The Minkowski dots are summed in another order than the
-// plain version's, so rows agree to float32 rounding; the choice of merges
-// depends only on the queue and the threshold, and agrees exactly.
+// constants. The Minkowski dots and the coherence average are summed in
+// another order than the plain version's, so rows agree to float32
+// rounding. K1's choice of merges depends only on the queue and the
+// threshold, and agrees exactly; K2's dense distance and score can differ
+// from the plain version's by rounding, so a near-tie can reorder a batch,
+// which chip_smoke.py's lockstep check (evals/selfcheck.py) classifies.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -49,9 +75,12 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBatch = 32;  // one warp per applied merge
+constexpr int kMaxD1 = 128;    // K2 stages new rows of up to 128 floats
+constexpr int kFoldGroup = 8;  // new columns summed per pass over a row
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr float kAcoshEps = 1e-8f;
+constexpr float kGradEps = 1e-6f;  // coherence distance clamp
 constexpr float kEpsNorm = 1e-8f;
 constexpr float kExpZeroTol = 1e-6f;
 constexpr float kThresholdCap = 1e6f;
@@ -59,9 +88,11 @@ constexpr int kHashP1 = 32749;
 constexpr int kHashP2 = 32719;
 
 // Integer loop scalars, in this order in the `si` array (enhanced_loop.py).
+// The last four are read by K2 only.
 enum {
   S_VOCAB, S_NM, S_STEP, S_EMPTY, S_STOPPED, S_PHASE, S_RESYNC, S_SYNCED,
-  S_M_BUDGET, S_S_BUDGET, S_CURV_STOP, S_QV0, S_QV1, S_QV2, S_COUNT
+  S_M_BUDGET, S_S_BUDGET, S_CURV_STOP, S_QV0, S_QV1, S_QV2, S_MORPH_SIZE,
+  S_WORD_SIZE, S_CORPUS_TOKENS, S_MAX_COUNT, S_COUNT
 };
 // Float loop scalars, in this order in the `sf` array.
 enum { F_THR, F_C, F_COUNT };
@@ -86,6 +117,17 @@ struct Params {
   float phase_thr[3];
   int adaptive, growth_every, empty_after, empty_stop;
   float growth, empty_growth;
+  // K2 only.
+  float* best_dist;      // (max_v,)
+  int* best_j;           // (max_v,)
+  const int* pair_keys;  // (table_size, 2) lexicographically sorted
+  const int* pair_counts;  // (table_size,)
+  const int* morph;      // (morph_len,) sorted, padded
+  const int* word;       // (word_len,) sorted, padded
+  const int* samples;    // (n_samples,) coherence sample ids
+  int table_size, morph_len, word_len, n_samples;
+  int needs_corpus, use_freq, use_comp, max_token_len;
+  float w_alpha, w_beta, w_gamma, w_comp, w_morph;
 };
 
 __device__ __forceinline__ int warp_sum_int(int v) {
@@ -102,9 +144,15 @@ __device__ __forceinline__ float acosh_log(float x) {
   return logf(x + sqrtf(x * x - 1.0f));
 }
 
-// Warp `warp` merges queue entry `sel` = pair (ci, cj) into row `slot`.
-__device__ void merge_one(const Params& p, int lane, int sel, int ci, int cj,
-                          int slot, int hist, const float* qd, float c) {
+// Coefficients of the length-weighted geodesic point of rows ci and cj
+// (lorentz.geodesic_point), summed over one warp:
+// point = degenerate ? x_ci : (num_x * x_ci + num_y * x_cj) / den.
+struct Geodesic {
+  float num_x, num_y, den;
+  bool degenerate;
+};
+
+__device__ Geodesic geodesic(const Params& p, int lane, int ci, int cj) {
   const float* xi = p.emb + (size_t)ci * p.d1;
   const float* xj = p.emb + (size_t)cj * p.d1;
   float dot = 0.0f;
@@ -119,36 +167,107 @@ __device__ void merge_one(const Params& p, int lane, int sel, int ci, int cj,
   const float d = acosh_log(fmaxf(dot, 1.0f + kAcoshEps));
   const float a = (1.0f - w) * d;
   const float b = w * d;
-  const float num_x = expf(-b) * (1.0f - expf(-2.0f * a));
-  const float num_y = expf(-a) * (1.0f - expf(-2.0f * b));
-  const float den = fmaxf(1.0f - expf(-2.0f * d), kEpsNorm);
-  const bool degenerate = d < kExpZeroTol;
+  Geodesic g;
+  g.num_x = expf(-b) * (1.0f - expf(-2.0f * a));
+  g.num_y = expf(-a) * (1.0f - expf(-2.0f * b));
+  g.den = fmaxf(1.0f - expf(-2.0f * d), kEpsNorm);
+  g.degenerate = d < kExpZeroTol;
+  return g;
+}
+
+// hash(a + b) from hash(a), hash(b) and the byte length of b
+// (scoring.compose_hash), both residues.
+__device__ void compose_hash(const Params& p, int ci, int cj, int* h1,
+                             int* h2) {
+  const int pw = min(p.byte_lengths[cj], p.max_hash_len - 1);
+  *h1 = (p.token_hash[2 * ci] * p.powers[pw] + p.token_hash[2 * cj]) % kHashP1;
+  *h2 = (p.token_hash[2 * ci + 1] * p.powers[p.max_hash_len + pw] +
+         p.token_hash[2 * cj + 1]) % kHashP2;
+}
+
+// One warp merges the pair (ci, cj), at distance `dist`, into row `slot`.
+__device__ void merge_one(const Params& p, int lane, int ci, int cj,
+                          int slot, int hist, float dist, float c) {
+  const float* xi = p.emb + (size_t)ci * p.d1;
+  const float* xj = p.emb + (size_t)cj * p.d1;
+  const Geodesic g = geodesic(p, lane, ci, cj);
   float* out = p.emb + (size_t)slot * p.d1;
   float sq = 0.0f;
   for (int e = lane; e < p.d1; e += 32) {
     if (e == 0) continue;
-    const float v = degenerate ? xi[e] : (num_x * xi[e] + num_y * xj[e]) / den;
+    const float v = g.degenerate ? xi[e]
+                                 : (g.num_x * xi[e] + g.num_y * xj[e]) / g.den;
     out[e] = v;
     sq += v * v;
   }
   sq = warp_sum_float(sq);
   if (lane != 0) return;
   out[0] = sqrtf(1.0f + c * sq);
-  p.lengths[slot] = li + lj;
+  p.lengths[slot] = p.lengths[ci] + p.lengths[cj];
   p.merges[2 * hist] = ci;
   p.merges[2 * hist + 1] = cj;
-  p.merge_dists[hist] = qd[sel];
-  const int blj = p.byte_lengths[cj];
-  const int pw = min(blj, p.max_hash_len - 1);
-  p.token_hash[2 * slot] =
-      (p.token_hash[2 * ci] * p.powers[pw] + p.token_hash[2 * cj]) % kHashP1;
-  p.token_hash[2 * slot + 1] =
-      (p.token_hash[2 * ci + 1] * p.powers[p.max_hash_len + pw] +
-       p.token_hash[2 * cj + 1]) % kHashP2;
-  p.byte_lengths[slot] = p.byte_lengths[ci] + blj;
+  p.merge_dists[hist] = dist;
+  compose_hash(p, ci, cj, &p.token_hash[2 * slot], &p.token_hash[2 * slot + 1]);
+  p.byte_lengths[slot] = p.byte_lengths[ci] + p.byte_lengths[cj];
   p.has_vowel[slot] = (p.has_vowel[ci] | p.has_vowel[cj]) ? 1 : 0;
 }
 
+// Count of the pair (hi, lo) in the lexicographically sorted pair table, 0
+// when absent (scoring.lookup_pair_counts).
+__device__ int pair_count(const Params& p, int hi, int lo) {
+  int a = 0;
+  int b = p.table_size;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    const int mh = p.pair_keys[2 * mid];
+    const int ml = p.pair_keys[2 * mid + 1];
+    if (mh < hi || (mh == hi && ml < lo)) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  const int pos = min(a, p.table_size - 1);
+  return (p.pair_keys[2 * pos] == hi && p.pair_keys[2 * pos + 1] == lo)
+             ? p.pair_counts[pos]
+             : 0;
+}
+
+// Membership of `key` in a sorted table of `len` entries whose first `size`
+// are real (scoring.in_sorted_set).
+__device__ bool in_sorted(const int* table, int len, int size, int key) {
+  int a = 0;
+  int b = len;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (table[mid] < key) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  const int pos = min(a, len - 1);
+  return table[pos] == key && pos < size;
+}
+
+// Keep the lower (value, index) pair; ties go to the lower index.
+__device__ __forceinline__ void argmin_step(float& v, int& i, float ov,
+                                            int oi) {
+  if (ov < v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    argmin_step(v, i, __shfl_xor_sync(kFull, v, o), __shfl_xor_sync(kFull, i, o));
+  }
+}
+
+constexpr int kMaxSamples = 512;  // K2's coherence samples per sync
+
+template <bool kDense>
 __global__ void __launch_bounds__(kThreads, 1)
 enhanced_loop_kernel(Params p) {
   __shared__ int s_i[S_COUNT];
@@ -158,7 +277,17 @@ enhanced_loop_kernel(Params p) {
   __shared__ int s_sel[kMaxBatch];
   __shared__ int s_ci[kMaxBatch];
   __shared__ int s_cj[kMaxBatch];
+  __shared__ float s_cd[kMaxBatch];
   __shared__ int s_halt, s_need_rs, s_n_apply, s_n_valid, s_n_live;
+  // K2: the dense candidate, its coherence terms and the fold's new rows.
+  __shared__ float s_red_f[kWarps];
+  __shared__ int s_red_i[kWarps];
+  __shared__ float s_mid[kDense ? kMaxD1 : 1];
+  __shared__ float s_coh[kDense ? kMaxSamples : 1];
+  __shared__ float s_new[kDense ? (kMaxBatch + kFoldGroup) * kMaxD1 : 1];
+  __shared__ int s_nlen[kMaxBatch];
+  __shared__ int s_di, s_dj, s_dvalid;
+  __shared__ float s_dd, s_dscore;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -170,6 +299,7 @@ enhanced_loop_kernel(Params p) {
   const int per = (p.k + kThreads - 1) / kThreads;
   const int lo = min(tid * per, p.k);
   const int hi = min(lo + per, p.k);
+  const bool corpus = !kDense || p.needs_corpus;
 
   for (int s = 0; s < p.n_steps; ++s) {
     if (tid == 0) {
@@ -195,70 +325,237 @@ enhanced_loop_kernel(Params p) {
     const float* qd = p.q_dist + (size_t)pidx * p.k;
     const float* qs = p.q_score + (size_t)pidx * p.k;
 
+    int di = 0;
+    int dj = 0;
+    bool dvalid = false;
+    if constexpr (kDense) {
+      // The dense candidate: argmin of best_dist over the active rows
+      // (rows past the vocabulary hold inf), lowest index on ties.
+      float bv = INFINITY;
+      int bi = INT_MAX;
+      for (int r = tid; r < s_i[S_VOCAB]; r += kThreads) {
+        const float v = p.best_dist[r];
+        if (v < bv) {
+          bv = v;
+          bi = r;
+        }
+      }
+      warp_argmin(bv, bi);
+      if (lane == 0) {
+        s_red_f[warp] = bv;
+        s_red_i[warp] = bi;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        bv = s_red_f[lane];
+        bi = s_red_i[lane];
+        warp_argmin(bv, bi);
+        if (lane == 0) {
+          const int i0 = bi == INT_MAX ? 0 : bi;
+          const float d0 = p.best_dist[i0];
+          const int j0 = min(max(p.best_j[i0], 0), p.max_v - 1);
+          bool ok = isfinite(d0) && d0 < thr;
+          if (p.max_token_len > 0) {
+            // Backstop for the fold's length gate (a state re-scanned on
+            // load can carry overlong pairs).
+            ok = ok && p.lengths[i0] + p.lengths[j0] <= p.max_token_len;
+          }
+          s_di = i0;
+          s_dj = j0;
+          s_dd = d0;
+          s_dvalid = ok;
+        }
+      }
+      __syncthreads();
+      di = s_di;
+      dj = s_dj;
+      dvalid = s_dvalid;
+
+      // Its full score at this phase (enhanced_state._full_scores).
+      if (dvalid) {
+        const float c = s_f[F_C];
+        if (p.use_freq) {
+          // Coherence: the midpoint against the sync's samples.
+          if (warp == 0) {
+            const Geodesic g = geodesic(p, lane, di, dj);
+            const float* xi = p.emb + (size_t)di * p.d1;
+            const float* xj = p.emb + (size_t)dj * p.d1;
+            for (int e = lane; e < p.d1; e += 32) {
+              const float v = g.degenerate
+                                  ? xi[e]
+                                  : (g.num_x * xi[e] + g.num_y * xj[e]) / g.den;
+              s_mid[e] = e == 0 ? v : -v;
+            }
+          }
+          __syncthreads();
+          for (int q = warp; q < p.n_samples; q += kWarps) {
+            const int sid = p.samples[q];
+            const float* y = p.emb + (size_t)sid * p.d1;
+            float gram = 0.0f;
+            for (int e = lane; e < p.d1; e += 32) gram += s_mid[e] * y[e];
+            gram = warp_sum_float(gram);
+            if (lane == 0) {
+              s_coh[q] = (sid != di && sid != dj)
+                             ? acosh_log(fmaxf(gram, 1.0f + kGradEps)) /
+                                   sqrtf(c)
+                             : -1.0f;
+            }
+          }
+          __syncthreads();
+        }
+        if (tid == 0) {
+          const float dd = s_dd;
+          const int freq = (p.use_freq || p.use_comp) ? pair_count(p, di, dj)
+                                                      : 0;
+          const float dist_score = 1.0f / (1.0f + dd);
+          float freq_score = 0.0f;
+          float semantic = 0.0f;
+          float compression = 0.0f;
+          if (p.use_freq) {
+            const float denom = log1pf((float)max(s_i[S_MAX_COUNT], 1));
+            freq_score = log1pf((float)freq) / fmaxf(denom, 1e-9f);
+            float sum = 0.0f;
+            int cnt = 0;
+            for (int q = 0; q < p.n_samples; ++q) {
+              if (s_coh[q] >= 0.0f) {
+                sum += s_coh[q];
+                ++cnt;
+              }
+            }
+            const float avg = sum / (float)max(cnt, 1);
+            semantic = 1.0f / (1.0f + expf(avg - thr));
+          }
+          if (p.use_comp) {
+            const float total = (float)max(s_i[S_CORPUS_TOKENS], 1);
+            const float ratio = total / fmaxf(total - (float)freq, 1.0f);
+            compression = fminf(fmaxf(ratio - 1.0f, 0.0f), 1.0f);
+          }
+          // The plain version's order of operations, unfused.
+          float score = __fadd_rn(
+              __fadd_rn(__fadd_rn(__fmul_rn(p.w_alpha, dist_score),
+                                  __fmul_rn(p.w_beta, freq_score)),
+                        __fmul_rn(p.w_gamma, semantic)),
+              __fmul_rn(p.w_comp, compression));
+          if (p.use_hier) {
+            const int li = p.lengths[di];
+            const int lj = p.lengths[dj];
+            int h1, h2;
+            compose_hash(p, di, dj, &h1, &h2);
+            const int key = h1 * 65536 + h2;
+            float m;
+            if (pidx == 0) {
+              m = (li <= 2 && lj <= 2) ? 0.8f : 0.2f;
+            } else if (pidx == 1) {
+              m = in_sorted(p.morph, p.morph_len, s_i[S_MORPH_SIZE], key)
+                      ? 0.9f
+                      : 0.3f;
+            } else {
+              const bool word =
+                  in_sorted(p.word, p.word_len, s_i[S_WORD_SIZE], key) ||
+                  (li + lj >= 3 && (p.has_vowel[di] | p.has_vowel[dj]));
+              m = word ? 1.0f : 0.4f;
+            }
+            score = __fadd_rn(score, __fmul_rn(p.w_morph, m));
+          }
+          s_dscore = score;
+        }
+      }
+    }
+
     // Rank the valid entries: exclusive block scan of per-thread counts
     // over contiguous runs of the queue, so ranks follow queue order.
-    int my_valid = 0;
-    int my_live = 0;
-    for (int e = lo; e < hi; ++e) {
-      const bool live = qs[e] > -INFINITY;
-      my_live += live;
-      my_valid += live && (qd[e] < thr);
-    }
-    int incl = my_valid;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += v;
-    }
-    const int live_w = warp_sum_int(my_live);
-    if (lane == 31) s_scan[warp] = incl;
-    if (lane == 0) s_live[warp] = live_w;
-    __syncthreads();
-    if (warp == 0) {
-      const int v = s_scan[lane];
-      int inc = v;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(kFull, inc, o);
-        if (lane >= o) inc += u;
+    if (corpus) {
+      int my_valid = 0;
+      int my_live = 0;
+      for (int e = lo; e < hi; ++e) {
+        const bool live = qs[e] > -INFINITY;
+        bool ok = live && (qd[e] < thr);
+        if (kDense && dvalid) ok = ok && !(qi[e] == di && qj[e] == dj);
+        my_live += live;
+        my_valid += ok;
       }
-      const int live_all = warp_sum_int(s_live[lane]);
-      __syncwarp();
-      s_scan[lane] = inc - v;
-      if (lane == 31) s_n_valid = inc;
-      if (lane == 0) s_n_live = live_all;
-    }
-    __syncthreads();
-    int rank = s_scan[warp] + incl - my_valid;
-    for (int e = lo; e < hi && rank < p.nb; ++e) {
-      if (qs[e] > -INFINITY && qd[e] < thr) {
-        s_sel[rank] = e;
-        ++rank;
+      int incl = my_valid;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int live_w = warp_sum_int(my_live);
+      if (lane == 31) s_scan[warp] = incl;
+      if (lane == 0) s_live[warp] = live_w;
+      __syncthreads();
+      if (warp == 0) {
+        const int v = s_scan[lane];
+        int inc = v;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(kFull, inc, o);
+          if (lane >= o) inc += u;
+        }
+        const int live_all = warp_sum_int(s_live[lane]);
+        __syncwarp();
+        s_scan[lane] = inc - v;
+        if (lane == 31) s_n_valid = inc;
+        if (lane == 0) s_n_live = live_all;
+      }
+      __syncthreads();
+      int rank = s_scan[warp] + incl - my_valid;
+      for (int e = lo; e < hi && rank < p.nb; ++e) {
+        bool ok = qs[e] > -INFINITY && qd[e] < thr;
+        if (kDense && dvalid) ok = ok && !(qi[e] == di && qj[e] == dj);
+        if (ok) {
+          s_sel[rank] = e;
+          ++rank;
+        }
       }
     }
     __syncthreads();
 
     if (tid == 0) {
-      const int n_valid = s_n_valid;
+      const int n_valid = corpus ? s_n_valid : 0;
       const bool consumed_any = s_i[S_NM] > s_i[S_SYNCED];
-      const bool need_rs =
-          (s_i[S_QV0 + pidx] > p.k && consumed_any && n_valid < p.nb) ||
-          (s_n_live == 0 && consumed_any);
-      const int n_apply =
-          need_rs ? 0 : max(0, min(min(n_valid, p.nb), p.max_v - s_i[S_VOCAB]));
-      for (int t = 0; t < n_apply; ++t) {
-        s_ci[t] = qi[s_sel[t]];
-        s_cj[t] = qj[s_sel[t]];
+      bool need_rs =
+          corpus && s_i[S_QV0 + pidx] > p.k && consumed_any && n_valid < p.nb;
+      // Corpus-only mode: a fully consumed queue waits for a sync. (K2 has
+      // the dense channel whenever it has a corpus.)
+      if (!kDense) need_rs = need_rs || (s_n_live == 0 && consumed_any);
+      const int n_taken = min(n_valid, p.nb);
+      // The dense candidate goes in at its rank among the taken entries,
+      // ahead of entries with an equal score.
+      int at = n_taken + 1;
+      if (kDense && dvalid) {
+        at = 0;
+        for (int t = 0; t < n_taken; ++t) at += qs[s_sel[t]] > s_dscore;
+      }
+      int n = 0;
+      for (int t = 0; t <= n_taken; ++t) {
+        if (t == at) {
+          s_ci[n] = di;
+          s_cj[n] = dj;
+          s_cd[n] = s_dd;
+          ++n;
+        }
+        if (t < n_taken) {
+          s_ci[n] = qi[s_sel[t]];
+          s_cj[n] = qj[s_sel[t]];
+          s_cd[n] = qd[s_sel[t]];
+          ++n;
+        }
       }
       s_need_rs = need_rs;
-      s_n_apply = n_apply;
+      s_n_apply = need_rs ? 0 : max(0, min(n, p.max_v - s_i[S_VOCAB]));
     }
     __syncthreads();
 
     const int n_apply = s_n_apply;
     if (warp < n_apply) {
-      merge_one(p, lane, s_sel[warp], s_ci[warp], s_cj[warp],
-                s_i[S_VOCAB] + warp, s_i[S_NM] + warp, qd, s_f[F_C]);
+      merge_one(p, lane, s_ci[warp], s_cj[warp], s_i[S_VOCAB] + warp,
+                s_i[S_NM] + warp, s_cd[warp], s_f[F_C]);
     }
-    if (n_apply > 0) {
+    if (kDense && tid < n_apply) {
+      // Invalidate row ci iff its tracked best was just consumed (best_j is
+      // the pre-batch one: the fold below has not run).
+      if (p.best_j[s_ci[tid]] == s_cj[tid]) p.best_dist[s_ci[tid]] = INFINITY;
+    }
+    if (corpus && n_apply > 0) {
       // Consume every applied ordered pair in all three phase queues.
       for (int e = tid; e < 3 * p.k; e += kThreads) {
         const int a = p.q_i[e];
@@ -272,6 +569,61 @@ enhanced_loop_kernel(Params p) {
       }
     }
     __syncthreads();
+
+    if constexpr (kDense) {
+      if (n_apply > 0) {
+        // The batched column fold: every row r < vocab_post gains the new
+        // columns slot > r that pass the length gate.
+        const int vocab0 = s_i[S_VOCAB];
+        for (int f = tid; f < n_apply * p.d1; f += kThreads) {
+          const int t = f / p.d1;
+          const int e = f - t * p.d1;
+          const float v = p.emb[(size_t)(vocab0 + t) * p.d1 + e];
+          s_new[t * kMaxD1 + e] = e == 0 ? v : -v;
+        }
+        if (tid < n_apply) s_nlen[tid] = p.lengths[vocab0 + tid];
+        __syncthreads();
+        const float sqrt_c = sqrtf(s_f[F_C]);
+        const int vpost = vocab0 + n_apply;
+        for (int r = tid; r < vpost; r += kThreads) {
+          const float* row = p.emb + (size_t)r * p.d1;
+          const int lr = p.lengths[r];
+          float best = p.best_dist[r];
+          int arg = -1;
+          for (int t0 = 0; t0 < n_apply; t0 += kFoldGroup) {
+            float acc[kFoldGroup];
+#pragma unroll
+            for (int q = 0; q < kFoldGroup; ++q) acc[q] = 0.0f;
+            for (int e = 0; e < p.d1; ++e) {
+              const float x = row[e];
+#pragma unroll
+              for (int q = 0; q < kFoldGroup; ++q) {
+                acc[q] = fmaf(s_new[(t0 + q) * kMaxD1 + e], x, acc[q]);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < kFoldGroup; ++q) {
+              const int t = t0 + q;
+              if (t < n_apply && r < vocab0 + t &&
+                  (p.max_token_len <= 0 ||
+                   lr + s_nlen[t] <= p.max_token_len)) {
+                const float d =
+                    acosh_log(fmaxf(acc[q], 1.0f + kAcoshEps)) / sqrt_c;
+                if (d < best) {
+                  best = d;
+                  arg = vocab0 + t;
+                }
+              }
+            }
+          }
+          if (arg >= 0) {
+            p.best_dist[r] = best;
+            p.best_j[r] = arg;
+          }
+        }
+        __syncthreads();
+      }
+    }
 
     if (tid == 0) {
       float thr2 = s_f[F_THR];
@@ -312,18 +664,16 @@ enhanced_loop_kernel(Params p) {
   if (tid < F_COUNT) p.sf[tid] = s_f[tid];
 }
 
-}  // namespace
-
-extern "C" int enhanced_loop_launch(
-    void* emb, void* lengths, void* byte_lengths, void* has_vowel,
-    void* token_hash, void* merges, void* merge_dists, void* q_i, void* q_j,
-    void* q_dist, void* q_score, void* powers, void* si, void* sf, int max_v,
-    int d1, int k, int nb, int n_steps, int max_hash_len, int use_hier,
-    int phase2, int phase3, float thr1, float thr2, float thr3, int adaptive,
-    int growth_every, float growth, int empty_after, float empty_growth,
-    int empty_stop, void* stream) {
-  if (nb < 1 || nb > kMaxBatch) return (int)cudaErrorInvalidValue;
-  Params p;
+Params base_params(void* emb, void* lengths, void* byte_lengths,
+                   void* has_vowel, void* token_hash, void* merges,
+                   void* merge_dists, void* q_i, void* q_j, void* q_dist,
+                   void* q_score, void* powers, void* si, void* sf, int max_v,
+                   int d1, int k, int nb, int n_steps, int max_hash_len,
+                   int use_hier, int phase2, int phase3, float thr1,
+                   float thr2, float thr3, int adaptive, int growth_every,
+                   float growth, int empty_after, float empty_growth,
+                   int empty_stop) {
+  Params p = {};
   p.emb = static_cast<float*>(emb);
   p.lengths = static_cast<int*>(lengths);
   p.byte_lengths = static_cast<int*>(byte_lengths);
@@ -356,6 +706,78 @@ extern "C" int enhanced_loop_launch(
   p.empty_after = empty_after;
   p.empty_growth = empty_growth;
   p.empty_stop = empty_stop;
-  enhanced_loop_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return p;
+}
+
+}  // namespace
+
+extern "C" int enhanced_loop_launch(
+    void* emb, void* lengths, void* byte_lengths, void* has_vowel,
+    void* token_hash, void* merges, void* merge_dists, void* q_i, void* q_j,
+    void* q_dist, void* q_score, void* powers, void* si, void* sf, int max_v,
+    int d1, int k, int nb, int n_steps, int max_hash_len, int use_hier,
+    int phase2, int phase3, float thr1, float thr2, float thr3, int adaptive,
+    int growth_every, float growth, int empty_after, float empty_growth,
+    int empty_stop, void* stream) {
+  if (nb < 1 || nb > kMaxBatch) return (int)cudaErrorInvalidValue;
+  const Params p = base_params(
+      emb, lengths, byte_lengths, has_vowel, token_hash, merges, merge_dists,
+      q_i, q_j, q_dist, q_score, powers, si, sf, max_v, d1, k, nb, n_steps,
+      max_hash_len, use_hier, phase2, phase3, thr1, thr2, thr3, adaptive,
+      growth_every, growth, empty_after, empty_growth, empty_stop);
+  enhanced_loop_kernel<false>
+      <<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// K2: the arguments of enhanced_loop_launch, then the dense channel's
+// buffers (best_dist, best_j, pair table, morph/word tables, coherence
+// samples), their sizes, its switches and the score weights.
+extern "C" int enhanced_loop_dense_launch(
+    void* emb, void* lengths, void* byte_lengths, void* has_vowel,
+    void* token_hash, void* merges, void* merge_dists, void* q_i, void* q_j,
+    void* q_dist, void* q_score, void* powers, void* si, void* sf, int max_v,
+    int d1, int k, int nb, int n_steps, int max_hash_len, int use_hier,
+    int phase2, int phase3, float thr1, float thr2, float thr3, int adaptive,
+    int growth_every, float growth, int empty_after, float empty_growth,
+    int empty_stop, void* best_dist, void* best_j, void* pair_keys,
+    void* pair_counts, void* morph, void* word, void* samples, int table_size,
+    int morph_len, int word_len, int n_samples, int needs_corpus,
+    int use_freq, int use_comp, int max_token_len,
+    float w_alpha, float w_beta, float w_gamma, float w_comp, float w_morph,
+    void* stream) {
+  // The dense candidate takes one more warp than the queue's batch.
+  if (nb < 1 || nb + 1 > kMaxBatch || d1 > kMaxD1 ||
+      n_samples > kMaxSamples || table_size < 1 || morph_len < 1 ||
+      word_len < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p = base_params(
+      emb, lengths, byte_lengths, has_vowel, token_hash, merges, merge_dists,
+      q_i, q_j, q_dist, q_score, powers, si, sf, max_v, d1, k, nb, n_steps,
+      max_hash_len, use_hier, phase2, phase3, thr1, thr2, thr3, adaptive,
+      growth_every, growth, empty_after, empty_growth, empty_stop);
+  p.best_dist = static_cast<float*>(best_dist);
+  p.best_j = static_cast<int*>(best_j);
+  p.pair_keys = static_cast<const int*>(pair_keys);
+  p.pair_counts = static_cast<const int*>(pair_counts);
+  p.morph = static_cast<const int*>(morph);
+  p.word = static_cast<const int*>(word);
+  p.samples = static_cast<const int*>(samples);
+  p.table_size = table_size;
+  p.morph_len = morph_len;
+  p.word_len = word_len;
+  p.n_samples = n_samples;
+  p.needs_corpus = needs_corpus;
+  p.use_freq = use_freq;
+  p.use_comp = use_comp;
+  p.max_token_len = max_token_len;
+  p.w_alpha = w_alpha;
+  p.w_beta = w_beta;
+  p.w_gamma = w_gamma;
+  p.w_comp = w_comp;
+  p.w_morph = w_morph;
+  enhanced_loop_kernel<true>
+      <<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

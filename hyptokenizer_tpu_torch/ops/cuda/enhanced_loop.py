@@ -1,15 +1,19 @@
-"""Kernel K1 (the scored merge segment) and the chunk driver around it.
+"""Kernels K1 and K2 (the scored merge segment) and the chunk driver around
+them.
 
 Replaces ``hyptokenizer_tpu/ops/pallas/enhanced_loop.py``: the Pallas
-``_kernel`` (:156) in its corpus-only configuration, ``_run_segment`` (:623)
-and ``_run_chunk_fused`` (:790). The kernel is ``csrc/enhanced_loop.cu``
-(see the note at its top for its design and its bound); its plain version
-is ``tokenizer/enhanced_state.enhanced_step``, looped to the same halt
-conditions by :func:`run_segment_plain`.
+``_kernel`` (:156) in its two configurations, ``_run_segment`` (:623) and
+``_run_chunk_fused`` (:790). Both kernels are ``csrc/enhanced_loop.cu`` (see
+the note at its top for their design and bounds): K1 runs the corpus-only
+configuration (``use_dense_channel=False`` with a corpus), K2 every
+configuration with the dense channel (``use_dense_channel`` or no corpus
+feature). Their plain version is ``tokenizer/enhanced_state.enhanced_step``,
+looped to the same halt conditions by :func:`run_segment_plain`.
 
-:func:`run_segment` launches the kernel for a state on the card and runs
-the plain version for a state on the CPU; for a CUDA state it launches or
-raises, never falls back. ``launches`` counts kernel launches.
+:func:`run_segment` launches the configuration's kernel for a state on the
+card and runs the plain version for a state on the CPU; for a CUDA state it
+launches or raises, never falls back. ``launches`` counts K1's launches,
+``dense_launches`` K2's.
 
 :func:`run_chunk` is the segment relaunch loop: one corpus sync, then
 segments that halt at every adaptive-curvature event, with the curvature
@@ -32,23 +36,35 @@ from hyptokenizer_tpu_torch.tokenizer import scoring
 
 SOURCE = "enhanced_loop"
 MAX_BATCH = 32          # one warp per merge of a batch (csrc/enhanced_loop.cu)
+MAX_D1 = 128            # K2 stages new rows of up to 128 floats
+MAX_SAMPLES = 512       # K2's coherence samples per sync
 SEGMENT_STEPS = 1024    # steps per launch (the JAX package's segment_grid)
 NO_CURVATURE_STOP = 1 << 30
 
-launches = 0            # kernel launches since the last reset_launches()
+launches = 0            # K1 launches since the last reset_launches()
+dense_launches = 0      # K2 launches since the last reset_launches()
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, dense_launches
     launches = 0
+    dense_launches = 0
 
 
-def _launcher():
-    fn = _build.load(SOURCE).enhanced_loop_launch
+def uses_dense(config) -> bool:
+    """Whether a configuration runs the dense channel (kernel K2)."""
+    return config.use_dense_channel or not config.needs_corpus
+
+
+def _launcher(dense: bool):
+    lib = _build.load(SOURCE)
+    fn = lib.enhanced_loop_dense_launch if dense else lib.enhanced_loop_launch
     if fn.argtypes is None:
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([ptr] * 14 + [i] * 9 + [f] * 3
-                       + [i, i, f, i, f, i, ptr])
+        args = [ptr] * 14 + [i] * 9 + [f] * 3 + [i, i, f, i, f, i]
+        if dense:
+            args += [ptr] * 7 + [i] * 8 + [f] * 5
+        fn.argtypes = args + [ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -72,44 +88,57 @@ def run_segment_plain(st, config, m_budget: int, s_budget: int,
     return st
 
 
+def _check_tensors(obj, want: dict, prefix: str = "") -> None:
+    for name, dtype in want.items():
+        t = getattr(obj, name)
+        if t.device.type != "cuda" or t.dtype != dtype or \
+                not t.is_contiguous():
+            raise ValueError(f"{prefix}{name}: need a contiguous {dtype} CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+
+
 def _check_cuda_state(st, config) -> None:
-    E._check_corpus_only(config)
     nb = max(1, config.merge_batch)
-    if nb > MAX_BATCH:
-        raise ValueError(f"merge_batch {nb} > {MAX_BATCH}: the kernel runs "
-                         "one warp per merge of a batch")
+    dense = uses_dense(config)
+    if nb + int(dense) > MAX_BATCH:
+        raise ValueError(f"merge_batch {nb} > {MAX_BATCH - int(dense)}: the "
+                         "kernel runs one warp per merge of a batch"
+                         + (" and one for the dense candidate" if dense
+                            else ""))
     want = {
         "emb": torch.float32, "lengths": torch.int32,
         "merges": torch.int32, "merge_dists": torch.float32,
     }
-    for name, dtype in want.items():
-        t = getattr(st.base, name)
-        if t.device.type != "cuda" or t.dtype != dtype or \
-                not t.is_contiguous():
-            raise ValueError(f"base.{name}: need a contiguous {dtype} CUDA "
-                             f"tensor, got {t.dtype} on {t.device}")
+    if dense:
+        want.update(best_dist=torch.float32, best_j=torch.int32)
+    _check_tensors(st.base, want, "base.")
     want = {
         "byte_lengths": torch.int32, "has_vowel": torch.bool,
         "token_hash": torch.int32, "q_i": torch.int32, "q_j": torch.int32,
         "q_dist": torch.float32, "q_score": torch.float32,
         "hash_powers": torch.int32,
     }
-    for name, dtype in want.items():
-        t = getattr(st, name)
-        if t.device.type != "cuda" or t.dtype != dtype or \
-                not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} CUDA "
-                             f"tensor, got {t.dtype} on {t.device}")
+    if dense:
+        want.update(pair_keys=torch.int32, pair_counts=torch.int32,
+                    morph_table=torch.int32, word_table=torch.int32,
+                    coh_samples=torch.int32)
+    _check_tensors(st, want)
     if st.q_i.shape != (3, config.queue_size):
         raise ValueError(f"queues of shape {tuple(st.q_i.shape)}, expected "
                          f"(3, {config.queue_size})")
+    if dense and (st.base.emb.shape[1] > MAX_D1
+                  or st.coh_samples.shape[0] > MAX_SAMPLES):
+        raise ValueError(f"the dense kernel takes d+1 <= {MAX_D1} and at most "
+                         f"{MAX_SAMPLES} coherence samples")
 
 
 def run_segment_cuda(st, config, m_budget: int, s_budget: int,
                      curv_stop: int, n_steps: int = SEGMENT_STEPS):
-    """One launch of kernel K1: up to ``n_steps`` steps, in place."""
-    global launches
+    """One launch of the configuration's kernel (K1, or K2 with the dense
+    channel): up to ``n_steps`` steps, in place."""
+    global launches, dense_launches
     _check_cuda_state(st, config)
+    dense = uses_dense(config)
     base = st.base
     dev = base.emb.device
     si = torch.cat([
@@ -118,11 +147,25 @@ def run_segment_cuda(st, config, m_budget: int, s_budget: int,
                      st.needs_resync.int(), st.corpus_synced]).int(),
         torch.tensor([m_budget, s_budget, curv_stop], dtype=torch.int32,
                      device=dev),
-        st.q_valid_total.int()]).contiguous()
+        st.q_valid_total.int(),
+        torch.stack([st.morph_size, st.word_size, st.corpus_tokens,
+                     st.max_pair_count]).int()]).contiguous()
     sf = torch.stack([base.threshold, base.curvature]).float().contiguous()
     b = config.base
     thr = config.phase_thresholds
-    rc = _launcher()(
+    extra = []
+    if dense:
+        extra = [
+            base.best_dist.data_ptr(), base.best_j.data_ptr(),
+            st.pair_keys.data_ptr(), st.pair_counts.data_ptr(),
+            st.morph_table.data_ptr(), st.word_table.data_ptr(),
+            st.coh_samples.data_ptr(), st.pair_keys.shape[0],
+            st.morph_table.shape[0], st.word_table.shape[0],
+            st.coh_samples.shape[0], int(config.needs_corpus),
+            int(config.use_frequency), int(config.use_compression),
+            b.max_token_len,
+            *config.weights()]
+    rc = _launcher(dense)(
         base.emb.data_ptr(), base.lengths.data_ptr(),
         st.byte_lengths.data_ptr(), st.has_vowel.data_ptr(),
         st.token_hash.data_ptr(), base.merges.data_ptr(),
@@ -135,11 +178,14 @@ def run_segment_cuda(st, config, m_budget: int, s_budget: int,
         config.phase3_step, thr[0], thr[1], thr[2],
         int(b.adaptive_threshold), b.threshold_growth_every,
         b.threshold_growth, b.empty_growth_after, b.empty_growth,
-        b.empty_stop_after, torch.cuda.current_stream(dev).cuda_stream)
+        b.empty_stop_after, *extra, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"enhanced_loop kernel launch failed: CUDA error "
-                           f"{rc}")
-    launches += 1
+        raise RuntimeError(f"enhanced_loop{'_dense' if dense else ''} kernel "
+                           f"launch failed: CUDA error {rc}")
+    if dense:
+        dense_launches += 1
+    else:
+        launches += 1
     return dataclasses.replace(
         st, phase=si[5], needs_resync=si[6].bool(),
         base=dataclasses.replace(
@@ -148,10 +194,11 @@ def run_segment_cuda(st, config, m_budget: int, s_budget: int,
 
 
 def run_segment(st, config, m_budget: int, s_budget: int, curv_stop: int,
-                sampler, n_steps: int = SEGMENT_STEPS):
-    """A segment on the state's own device: kernel K1 on the card, its
-    plain version on the CPU."""
-    if st.base.emb.device.type == "cpu":
+                sampler, n_steps: int = SEGMENT_STEPS, plain: bool = False):
+    """A segment on the state's own device: kernel K1 or K2 on the card,
+    their plain version on the CPU, or everywhere when ``plain`` is asked
+    for (the oracle of ``evals/selfcheck.py``)."""
+    if plain or st.base.emb.device.type == "cpu":
         return run_segment_plain(st, config, m_budget, s_budget, curv_stop,
                                  sampler, n_steps)
     return run_segment_cuda(st, config, m_budget, s_budget, curv_stop,
@@ -159,9 +206,9 @@ def run_segment(st, config, m_budget: int, s_budget: int, curv_stop: int,
 
 
 def run_chunk(st, config, n_steps: int, sampler,
-              segment_steps: int = SEGMENT_STEPS):
+              segment_steps: int = SEGMENT_STEPS, plain: bool = False):
     """One sync, then segments until ``n_steps`` merges, a resync, a stop or
-    the step budget."""
+    the step budget. ``plain`` runs the plain version on any device."""
     st = E.sync_corpus(st, config, sampler)
     sc = E.state_scalars(st)
     m_budget = sc["num_merges"] + n_steps
@@ -173,7 +220,7 @@ def run_chunk(st, config, n_steps: int, sampler,
         curv_stop = ((int(st.curv_last) // freq + 1) * freq if freq > 0
                      else NO_CURVATURE_STOP)
         st = run_segment(st, config, m_budget, s_budget, curv_stop, sampler,
-                         segment_steps)
+                         segment_steps, plain)
         now = E.state_scalars(st)
         if now["step"] == sc["step"] and not (now["stopped"]
                                               or now["needs_resync"]):
@@ -184,15 +231,23 @@ def run_chunk(st, config, n_steps: int, sampler,
     return st
 
 
-def segment_bytes(st, config, n_merges: int) -> int:
+def segment_bytes(st, config, n_merges: int, fold_rows: int = 0) -> int:
     """Bytes a segment of ``n_merges`` merges must move, each input read
     once and each output written once: the three phase queues read and
     their scores written back, two embedding rows and their token features
-    read per merge, and the new row, features and history written."""
+    read per merge, and the new row, features and history written.
+
+    With the dense channel, ``fold_rows`` is the sum over the segment's
+    steps of the rows below the post-batch vocabulary: each step's argmin
+    reads their ``best_dist``, and its fold reads their embedding rows,
+    lengths and ``best_dist``/``best_j`` and writes ``best_dist``/``best_j``.
+    """
     k3 = 3 * config.queue_size
     d1 = st.base.emb.shape[1]
     queues = k3 * (4 + 4 + 4 + 4) + k3 * 4
     per_merge_in = 2 * (d1 * 4 + 4 + 4 + 8 + 1)   # rows, len, bytes, hash, vowel
     per_merge_out = d1 * 4 + 4 + 4 + 8 + 1 + 8 + 4  # + history pair, dist
     powers = 2 * scoring.MAX_HASH_LEN * 4
-    return queues + powers + n_merges * (per_merge_in + per_merge_out)
+    per_fold_row = 4 + d1 * 4 + 4 + 2 * (4 + 4)
+    return (queues + powers + n_merges * (per_merge_in + per_merge_out)
+            + fold_rows * per_fold_row)

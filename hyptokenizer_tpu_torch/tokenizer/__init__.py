@@ -1,8 +1,9 @@
-"""Tokenizer algorithms of the port (first slice: corpus-only training).
+"""Tokenizer algorithms of the port (corpus-only and all-features training).
 
 - ``scoring``        — hashes, corpus replay, pair table, top-k queues
-- ``state``          — the merge state (corpus-only branch)
-- ``enhanced_state`` — sync, curvature Adam, the scored step (plain K1)
+- ``search``         — exact per-row best candidates (plain K3)
+- ``state``          — the merge state, inserts and column fold
+- ``enhanced_state`` — sync, curvature Adam, the scored step (plain K1, K2)
 - ``core``/``enhanced`` — the host-side tokenizer classes and artifacts
 - ``encode``         — tokenize/encode/decode
 - ``normalize``      — Unicode normalization and lossless pre-splitting

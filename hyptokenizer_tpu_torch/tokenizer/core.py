@@ -7,9 +7,9 @@ package's (``vocab.json``, ``merges.json``, ``config.json``,
 ``embeddings.npy``/``embeddings.pt``, ``training_stats.json``), byte for
 byte, so artifacts move between the two packages in both directions.
 
-The distance-only training loop and the dense candidate re-scan on load
-belong to later slices: a loaded state keeps its dense-candidate arrays
-poisoned, which corpus-only training never reads.
+A loaded tokenizer re-scans its dense candidates (``search.full_pass_best``
+with the loaded history and the length gate), so that training can go on
+after ``load``. The distance-only training loop belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from hyptokenizer_tpu_torch import _device
 from hyptokenizer_tpu_torch.ops import lorentz as L
+from hyptokenizer_tpu_torch.tokenizer import search as search_lib
 from hyptokenizer_tpu_torch.tokenizer import state as state_lib
 from hyptokenizer_tpu_torch.tokenizer.encode import Encoder
 from hyptokenizer_tpu_torch.tokenizer.normalize import NormalizerConfig
@@ -72,7 +73,10 @@ class HyperbolicTokenizer:
             max_vocab_size=self.max_vocab_size,
             adaptive_threshold=adaptive_threshold,
             search_block=search_block,
-            init_candidates=False,
+            # A subclass may set _init_candidates=False (corpus-only
+            # enhanced mode) before this runs: the dense-candidate arrays
+            # are then poisoned instead of computed (state.init_state).
+            init_candidates=getattr(self, "_init_candidates", True),
         )
         self.state = state_lib.init_state(
             emb0, [len(t) for t in self.vocab], curvature=self.curvature,
@@ -220,6 +224,12 @@ class HyperbolicTokenizer:
             st.merges[:len(merges)] = pairs
             st.num_merges = torch.tensor(len(merges), dtype=torch.int32,
                                          device=self.device)
+        # Candidates refreshed for continued training, length-gated as the
+        # training folds are.
+        st.best_dist, st.best_j = search_lib.full_pass_best(
+            st.emb, v, st.curvature, st.merges, st.num_merges,
+            block=self.config.search_block, lengths=st.lengths,
+            max_token_len=self.config.max_token_len)
 
     @classmethod
     def load(cls, path: str, device=None) -> "HyperbolicTokenizer":

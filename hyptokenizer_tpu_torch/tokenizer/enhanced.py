@@ -1,16 +1,12 @@
 """``EnhancedHyperbolicTokenizer``: the flagship tokenizer, in PyTorch.
 
-Port of ``hyptokenizer_tpu/tokenizer/enhanced.py`` for corpus-only
-training (``use_dense_channel=False`` with a corpus), the configuration of
-the flagship benchmark (``bench.py`` ``bench_enhanced``). The constructor
-keeps the JAX package's signature, except that ``device`` is honoured
-(default ``"cuda"``), ``seed`` seeds the :class:`TorchSampler` the loop
-draws from, and the multi-device knobs (``mesh``, ``corpus_shrink``) wait
-for a later slice.
-
-Dense-channel configurations construct (their candidate arrays poisoned),
-encode, save and load, but refuse to train until the dense channel is
-ported.
+Port of ``hyptokenizer_tpu/tokenizer/enhanced.py``: corpus-only training
+(the flagship benchmark, ``bench.py`` ``bench_enhanced``) and the dense,
+all-features configuration (``bench.py`` ``bench_allfeatures``). The
+constructor keeps the JAX package's signature, except that ``device`` is
+honoured (default ``"cuda"``), ``seed`` seeds the :class:`TorchSampler` the
+loop draws from, and the multi-device knobs (``mesh``, ``corpus_shrink``)
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -106,6 +102,14 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
     ):
         del cache_size, rebuild_frequency, hnsw_m, hnsw_ef_construction
         del hnsw_ef_search, distance_weight, sample_size, pool_k
+        # Corpus-only mode never reads the dense-candidate arrays: skip the
+        # O(V^2 d) pass and poison them (state.init_state). Decided before
+        # super().__init__ builds the state.
+        has_corpus = bool(corpus_path or corpus_sample)
+        needs_corpus = has_corpus and (use_frequency_aware
+                                       or use_compression_aware
+                                       or use_hierarchical)
+        self._init_candidates = use_dense_channel or not needs_corpus
         t_ctor0 = time.perf_counter()
         super().__init__(
             vocab, embeddings, curvature=curvature,
@@ -115,6 +119,8 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
             search_block=search_block, normalizer=normalizer,
             merge_policy=merge_policy)
         self.language = language
+        # The length cap, mirrored so that load's candidate re-scan applies
+        # the gate that training applies.
         self.config = dataclasses.replace(self.config,
                                           max_token_len=max_token_len)
         self.callbacks: List[Callable] = []
@@ -123,7 +129,7 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
                              search_block=search_block,
                              max_token_len=max_token_len),
             n_init=len(self.vocab),
-            has_corpus=bool(corpus_path or corpus_sample),
+            has_corpus=has_corpus,
             merge_batch=merge_batch,
             min_pair_freq=min_pair_freq,
             use_dense_channel=use_dense_channel,

@@ -1,15 +1,18 @@
 """The enhanced (feature-scored) merge loop, in PyTorch.
 
-Port of ``hyptokenizer_tpu/tokenizer/enhanced_state.py`` for the corpus-only
-configuration (``use_dense_channel=False`` with a corpus; see that module's
-docstring for the two-channel design). Candidates come from per-phase,
-score-sorted queues of corpus pairs that ``sync_corpus`` rebuilds at chunk
-boundaries; each step consumes the first ``merge_batch`` valid entries of
-the current phase's queue.
+Port of ``hyptokenizer_tpu/tokenizer/enhanced_state.py`` (see that
+module's docstring for the two-channel design). Sparse candidates come from
+per-phase, score-sorted queues of corpus pairs that ``sync_corpus``
+rebuilds at chunk boundaries; each step consumes the first ``merge_batch``
+valid entries of the current phase's queue. The dense (geometric) channel
+adds one candidate per step, the argmin of the per-row best distances
+``best_dist``/``best_j``, fully scored; its merges fold the new columns
+back into those arrays (``state.insert_batch``).
 
-``enhanced_step`` is the plain version of kernel K1
-(``ops/cuda/enhanced_loop.py``): the CPU path loops it, the card launches the
-kernel, and ``chip_smoke.py`` holds the two against each other.
+``enhanced_step`` is the plain version of kernels K1 (corpus-only) and K2
+(dense channel), ``ops/cuda/enhanced_loop.py``: the CPU path loops it, the
+card launches the kernel, and ``chip_smoke.py`` holds the two against each
+other.
 
 Random numbers. The JAX package draws from its state's PRNG key at every
 sync (coherence samples) and at every curvature event (negatives and
@@ -17,9 +20,6 @@ distortion pairs). Here those draws come from a *sampler* passed in by the
 caller: :class:`TorchSampler` draws from a seeded ``torch.Generator``; the
 tests pass one that replays the JAX key chain, so both packages see the
 same numbers.
-
-The dense (geometric) channel, kernel K2, is a later slice: its
-configurations raise here instead of running.
 """
 
 from __future__ import annotations
@@ -378,22 +378,39 @@ def _maybe_update_curvature(st: EnhancedState, config: EnhancedConfig,
 
 # -------------------------------------------------------------------- step
 
-def _check_corpus_only(config: EnhancedConfig) -> None:
-    if config.use_dense_channel or not config.needs_corpus:
-        raise NotImplementedError(
-            "the dense candidate channel (kernel K2) is not ported yet; the "
-            "port trains corpus-only configurations (use_dense_channel=False "
-            "with a corpus and a corpus-scored feature)")
+def _dense_candidate(st: EnhancedState, config: EnhancedConfig, pidx: int):
+    """The dense channel's representative: the global argmin of
+    ``best_dist`` (lowest index on ties), fully scored at phase ``pidx``.
+
+    Returns (di, dj, dd, valid, score) as 0-d tensors."""
+    base = st.base
+    di = torch.argmin(base.best_dist)
+    dd = base.best_dist[di]
+    dj = base.best_j[di].long()
+    freq = scoring.lookup_pair_counts(di[None], dj[None], st.pair_keys,
+                                      st.pair_counts)
+    score = _full_scores(st, config, di[None], dj[None], dd[None],
+                         freq)[0, pidx]
+    valid = torch.isfinite(dd) & (dd < base.threshold)
+    if config.base.max_token_len > 0:
+        # Backstop for the structural fold gate (a state re-scanned on load
+        # can carry overlong pairs).
+        valid &= (base.lengths[di] + base.lengths[dj]
+                  <= config.base.max_token_len)
+    return di, dj, dd, valid, score
 
 
 def enhanced_step(st: EnhancedState, config: EnhancedConfig,
                   sampler) -> EnhancedState:
-    """One scored step: merge up to ``merge_batch`` queue candidates.
+    """One scored step: merge up to ``merge_batch`` candidates.
 
-    The plain version of kernel K1. Buffers update in place; the returned
+    Selection: the first ``merge_batch`` valid entries of the current
+    phase's score-sorted queue (corpus configurations) and, with the dense
+    channel, the fully scored distance argmin inserted at its rank among
+    them (dense first on ties). The plain version of kernels K1 (corpus
+    only) and K2 (dense channel). Buffers update in place; the returned
     state carries the new scalars.
     """
-    _check_corpus_only(config)
     base = st.base
     dev = base.emb.device
     if config.use_hierarchical:
@@ -413,47 +430,74 @@ def enhanced_step(st: EnhancedState, config: EnhancedConfig,
         st = _maybe_update_curvature(st, config, sampler)
     base = st.base
 
-    # Consume-on-read from the current phase's score-sorted queue: its first
-    # nb valid entries are the top-nb candidates of the whole table.
     pidx = int(torch.clamp(st.phase - 1, 0, 2))
     nb = max(1, config.merge_batch)
-    k = config.queue_size
-    qs = st.q_score[pidx]
-    qd = st.q_dist[pidx]
-    live = qs > -INF
-    valid = live & (qd < base.threshold)
-    n_valid = int(valid.sum())
-    consumed_any = bool(base.num_merges > st.corpus_synced)
-    # A truncated queue that can no longer fill a batch may hide better
-    # candidates in the full table; a fully consumed queue can only be
-    # refilled by a sync (the merges made new corpus pairs).
-    need_rs = ((int(st.q_valid_total[pidx]) > k and consumed_any
-                and n_valid < nb)
-               or (int(live.sum()) == 0 and consumed_any))
+    use_dense = config.use_dense_channel or not config.needs_corpus
+    dense_valid = False
+    if use_dense:
+        di, dj, dd, dense_valid, dense_score = _dense_candidate(st, config,
+                                                                pidx)
+        dense_valid = bool(dense_valid)
+
+    need_rs = False
+    pos = torch.zeros((0,), dtype=torch.long, device=dev)
+    if config.needs_corpus:
+        # Consume-on-read from the current phase's score-sorted queue: its
+        # first nb valid entries are the top-nb candidates of the table.
+        k = config.queue_size
+        qs = st.q_score[pidx]
+        qd = st.q_dist[pidx]
+        live = qs > -INF
+        valid = live & (qd < base.threshold)
+        if config.use_dense_channel and dense_valid:
+            # A queue entry equal to the dense pair makes the same token:
+            # keep the dense copy only.
+            valid &= ~((st.q_i[pidx] == di) & (st.q_j[pidx] == dj))
+        n_valid = int(valid.sum())
+        consumed_any = bool(base.num_merges > st.corpus_synced)
+        # A truncated queue that can no longer fill a batch may hide better
+        # candidates in the full table; in corpus-only mode a fully consumed
+        # queue can only be refilled by a sync (the merges made new corpus
+        # pairs).
+        need_rs = int(st.q_valid_total[pidx]) > k and consumed_any and \
+            n_valid < nb
+        if not config.use_dense_channel:
+            need_rs = need_rs or (int(live.sum()) == 0 and consumed_any)
+        pos = torch.nonzero(valid).flatten()[:nb]
 
     prev_merges = base.num_merges
     if need_rs:
         st = dataclasses.replace(st, needs_resync=torch.ones_like(
             st.needs_resync))
     else:
-        pos = torch.nonzero(valid).flatten()[:nb]
-        n_apply = min(pos.shape[0],
+        ii = st.q_i[pidx, pos].long() if config.needs_corpus else pos
+        jj = st.q_j[pidx, pos].long() if config.needs_corpus else pos
+        dd_b = (st.q_dist[pidx, pos] if config.needs_corpus
+                else torch.zeros((0,), device=dev))
+        if dense_valid:
+            # Insertion rank among the score-sorted queue picks.
+            p = int((st.q_score[pidx, pos] > dense_score).sum()) \
+                if config.needs_corpus else 0
+            ii = torch.cat([ii[:p], di[None], ii[p:]])
+            jj = torch.cat([jj[:p], dj[None], jj[p:]])
+            dd_b = torch.cat([dd_b[:p], dd[None], dd_b[p:]])
+        n_apply = min(ii.shape[0],
                       config.base.max_vocab_size - int(base.vocab_size))
         if n_apply > 0:
-            pos = pos[:n_apply]
-            ii = st.q_i[pidx, pos].long()
-            jj = st.q_j[pidx, pos].long()
+            ii, jj, dd_b = ii[:n_apply], jj[:n_apply], dd_b[:n_apply]
             slot = base.vocab_size.long() + torch.arange(n_apply, device=dev)
             st.token_hash[slot] = scoring.compose_hash(
                 st.token_hash[ii], st.token_hash[jj], st.byte_lengths[jj],
                 st.hash_powers)
             st.byte_lengths[slot] = st.byte_lengths[ii] + st.byte_lengths[jj]
             st.has_vowel[slot] = st.has_vowel[ii] | st.has_vowel[jj]
-            # Consume every applied ordered pair in ALL phase queues.
-            hit = ((st.q_i[..., None] == ii.int()) & (st.q_j[..., None]
-                                                       == jj.int())).any(-1)
-            st.q_score[hit] = -INF
-            base = insert_batch(base, ii, jj, qd[pos])
+            if config.needs_corpus:
+                # Consume every applied ordered pair in ALL phase queues.
+                hit = ((st.q_i[..., None] == ii.int())
+                       & (st.q_j[..., None] == jj.int())).any(-1)
+                st.q_score[hit] = -INF
+            base = insert_batch(base, ii, jj, dd_b, fold=use_dense,
+                                max_token_len=config.base.max_token_len)
         else:
             empty = base.empty_rounds + 1
             if config.base.adaptive_threshold:
@@ -589,7 +633,6 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
             "this state was built for corpus-only training, which never "
             "maintains the dense-candidate arrays. Keep "
             "use_dense_channel=False with a corpus.")
-    _check_corpus_only(config)
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop
     remaining = n_steps
     before = int(st.base.num_merges)

@@ -147,7 +147,7 @@ def test_midpoint_insert():
 
 def test_poisoned_state_guard():
     """A dense-channel configuration on a corpus-only state raises, as in
-    the JAX package."""
+    the JAX package; a state built with candidates carries JAX's."""
     jt, tt = make_pair()
     dense = dataclasses.replace(tt.enh_config, use_dense_channel=True)
     with pytest.raises(ValueError, match="poisoned"):
@@ -155,7 +155,13 @@ def test_poisoned_state_guard():
     jdense = jt.enh_config.replace(use_dense_channel=True)
     with pytest.raises(ValueError, match="poisoned"):
         JE.run_enhanced(jt.enh_state, jdense, 8)
-    with pytest.raises(NotImplementedError):
-        TSt.init_state(np.zeros((4, 3), np.float32), [1] * 4,
-                       config=TSt.MergeConfig(max_vocab_size=8),
-                       device="cpu")
+    emb = np.asarray(jt.enh_state.base.emb[:12])
+    tst = TSt.init_state(emb, [1] * 12,
+                         config=TSt.MergeConfig(max_vocab_size=16),
+                         device="cpu")
+    jst = JSt.init_state(emb, np.ones(12, np.int32),
+                         config=JSt.MergeConfig(max_vocab_size=16))
+    np.testing.assert_allclose(tst.best_dist.numpy(),
+                               np.asarray(jst.best_dist), atol=1e-5)
+    np.testing.assert_array_equal(tst.best_j.numpy(),
+                                  np.asarray(jst.best_j))
