@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths once at full width (50,176 vocabulary
+Drives the port's three main paths once at full width (50,176 vocabulary
 slots, d=100, the whole ``data/wiki_corpus.txt.bz2``), through
-``EnhancedHyperbolicTokenizer``, ``optimize_merges``, ``encode`` and
-``save``/``load`` in a temporary directory:
+``EnhancedHyperbolicTokenizer`` or ``HyperbolicTokenizer``,
+``optimize_merges``, ``encode`` and ``save``/``load`` in a temporary
+directory:
 
 * the corpus-only flagship of ``bench.py`` ``bench_enhanced``, two
   2048-merge chunks (kernel K1);
@@ -14,7 +15,12 @@ slots, d=100, the whole ``data/wiki_corpus.txt.bz2``), through
   (dense channel, hierarchical curriculum, compression, adaptive curvature
   every 100 merges), 6144 merges across both phase transitions, then one
   more 512-merge chunk after ``load`` (kernels K3 in the constructors and
-  K2 in training).
+  K2 in training);
+* the distance-only loop of ``bench.py`` ``bench_distance_only``: 4096
+  length-1 tokens at sigma 0.5, threshold 5.0, adaptive, through the
+  startup threshold controller, 256 steps then six 4096-step chunks, then
+  one more 4096-step chunk after ``load`` (kernels K3 in the constructors
+  and K4 in training).
 
 Phases:
 
@@ -30,7 +36,14 @@ Phases:
    compares them, rows within ``ROW_ATOL`` plus their float32 conditioning,
    candidate grams within their float32 rounding bound); K3 at full
    activity (distances within ``DIST_ATOL``, partners equal except at ties
-   within it);
+   within it); K4 by lockstep with oracle resync, step by step over
+   ``K4_LOCKSTEP_STEPS`` steps from the trained distance-only state
+   (``evals/selfcheck._lockstep_base_steps``: scalars equal, merged pair
+   equal or a tie within the gram's rounding bound, new row within
+   ``ROW_ATOL`` plus its float32 conditioning, the fold within its gram
+   bound), and by the JAX package's chunk protocol at its own size
+   (``evals/selfcheck._check_base_kernel``, verdict recorded, see
+   ``PERF.md``);
 4. a ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 
@@ -39,6 +52,7 @@ port's package beside this file, on any failed check, or when the
 watchdog fires.
 """
 
+import dataclasses
 import faulthandler
 import json
 import os
@@ -64,6 +78,18 @@ ALL_AFTER_LOAD = 512
 ROW_ATOL = 1e-5          # fp32 rows: summation order differs (kernel note)
 DIST_ATOL = 1e-5         # K3: tests/test_pallas_pairwise.py's rule
 LOCKSTEP_SEGMENTS = 4   # K2 held to its plain version step by step
+# bench.py bench_distance_only (:230-257): the distance-only loop.
+DIST_N0 = 4096
+DIST_WARM = 256
+DIST_CHUNK = 4096
+DIST_CHUNKS = 6
+K4_LOCKSTEP_STEPS = 400
+# The structural length gate (MergeConfig.max_token_len) at the enhanced
+# tokenizer's default. Without it the distance-only loop at these shapes
+# chains merges of a token with its own midpoints, whose strings grow
+# without bound (PERF.md, section 6); the bare state loop of bench.py never
+# builds the strings, a tokenizer does.
+DIST_MAX_TOKEN_LEN = 512
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 H100_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 
@@ -516,6 +542,166 @@ def check_k1(tok):
         segment_bytes=nbytes, sync_ms=sync_ms)
 
 
+def main_path_distance(lines, device="cuda"):
+    """The distance-only path: construct (K3 over 4096 rows), train
+    ``DIST_WARM`` steps and ``DIST_CHUNKS`` chunks of ``DIST_CHUNK`` steps
+    (the startup controller, then K4), encode/decode, save/load and one
+    more chunk after load. Returns the trained tokenizer, a copy of its
+    state before save and the phase's numbers."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+    from hyptokenizer_tpu_torch.tokenizer import HyperbolicTokenizer
+
+    dev = torch.device(device)
+    chars = sorted({ch for ln in lines for ch in ln})
+    if len(chars) > DIST_N0:
+        fail(f"the corpus has {len(chars)} characters, more than {DIST_N0}")
+    have = set(chars)
+    extra = (chr(c) for c in range(0x4E00, 0x4E00 + 2 * DIST_N0)
+             if chr(c) not in have)
+    vocab = chars + [next(extra) for _ in range(DIST_N0 - len(chars))]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    emb = L.random_points(gen, DIST_N0, 100, sigma=0.5, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    K3.reset_launches()
+    K4.reset_launches()
+    t0 = time.perf_counter()
+    tok = HyperbolicTokenizer(vocab, emb, merge_threshold=5.0,
+                              max_vocab_size=50_176, search_block=512,
+                              device=dev)
+    tok.config = dataclasses.replace(tok.config,
+                                     max_token_len=DIST_MAX_TOKEN_LEN)
+    sync()
+    ctor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok.optimize_merges(DIST_WARM, log_every=DIST_CHUNK)
+    tok.optimize_merges(DIST_CHUNKS * DIST_CHUNK, log_every=DIST_CHUNK)
+    sync()
+    train_s = time.perf_counter() - t0
+    merges = len(tok.merge_history)
+    steps = int(tok.state.step)
+    if steps != DIST_WARM + DIST_CHUNKS * DIST_CHUNK or \
+            merges != int(tok.state.num_merges) or merges < DIST_CHUNK:
+        fail(f"distance-only path: {steps} steps, {merges} merges (device "
+             f"{int(tok.state.num_merges)})")
+    trained = selfcheck.clone_merge_state(tok.state)
+
+    v = len(tok.vocab)
+    emb_v = tok.state.emb[:v]
+    if int(tok.state.vocab_size) != v or emb_v.shape != (v, 101) or \
+            not bool(torch.isfinite(emb_v).all()):
+        fail("distance-only rows are not finite of shape (V, 101)")
+    lengths = [len(t) for t in tok.vocab]
+    if tok.state.lengths[:v].tolist() != lengths:
+        fail("distance-only token lengths disagree with the vocabulary")
+    if max(lengths) > 2 * DIST_MAX_TOKEN_LEN:
+        fail(f"a distance-only token of {max(lengths)} characters passed "
+             f"the length gate {DIST_MAX_TOKEN_LEN}")
+    sample = lines[:16]
+    ids = tok.encode_batch(sample)
+    for text, seq in zip(sample, ids):
+        if tok.decode(seq) != text:
+            fail(f"distance-only encode/decode is not lossless on "
+                 f"{text[:40]!r}")
+    with tempfile.TemporaryDirectory() as d:
+        tok.save(d)
+        back = HyperbolicTokenizer.load(d, device=device)
+    if back.vocab != tok.vocab or back.encode_batch(sample) != ids:
+        fail("distance-only vocabulary or encodes differ after save/load")
+    back.config = dataclasses.replace(back.config,
+                                      max_token_len=DIST_MAX_TOKEN_LEN)
+    t0 = time.perf_counter()
+    back.optimize_merges(DIST_CHUNK, log_every=DIST_CHUNK)
+    sync()
+    after_s = time.perf_counter() - t0
+    n_after = len(back.merge_history) - merges
+    va = int(back.state.vocab_size)
+    if n_after <= 0 or va != len(back.vocab) or \
+            not bool(torch.isfinite(back.state.emb[:va]).all()):
+        fail(f"distance-only training after load made {n_after} merges or "
+             "non-finite rows")
+    launches = {"merge_loop": K4.launches, "pairwise_min_best": K3.launches}
+    return tok, trained, dict(
+        ctor_s=ctor_s, train_s=train_s, merges=merges, steps=steps,
+        vocab=v, max_len=max(lengths), startup=tok.startup_stats,
+        after_load_s=after_s,
+        after_load_merges=n_after, launches=launches,
+        steps_per_s=[round(s["steps_per_sec"], 1)
+                     for s in tok.training_stats],
+        thresholds=[round(s["threshold"], 4) for s in tok.training_stats])
+
+
+def check_k4(trained, cfg):
+    """Kernel K4 against its plain version: step-by-step lockstep with
+    oracle resync over ``K4_LOCKSTEP_STEPS`` steps from the trained state,
+    the JAX package's chunk check at its own size (verdict recorded), then
+    one ``DIST_CHUNK``-step chunk of each timed from the trained state."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+    from hyptokenizer_tpu_torch.tokenizer import state as S
+
+    out = {}
+    selfcheck._lockstep_base_steps(trained, cfg, K4_LOCKSTEP_STEPS, out,
+                                   "k4", row_atol=ROW_ATOL)
+    if out["k4"] != "pass":
+        fail(f"K4 lockstep against its plain version: {out['k4']}")
+    selfcheck._check_base_kernel(out)
+
+    max_v, d1 = trained.emb.shape
+    v0, nm0 = int(trained.vocab_size), int(trained.num_merges)
+    clones = [selfcheck.clone_merge_state(trained) for _ in range(3)]
+    S.run_merges(clones.pop(), cfg, DIST_CHUNK)              # warm-up
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sk = K4.run_merges_chunk(clones.pop(), cfg, DIST_CHUNK)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b)
+    t0 = time.perf_counter()
+    sp = S.run_merges_plain(clones.pop(), cfg, DIST_CHUNK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    m = int(sk.num_merges) - nm0
+    steps = int(sk.step) - int(trained.step)
+    if steps != DIST_CHUNK or m <= 0:
+        fail(f"the K4 timing chunk ran {steps} steps and {m} merges")
+    nbytes = K4.chunk_bytes(v0, m, steps, d1, max_v, cfg.max_token_len)
+    # Per merge: the fold's d1-long dot per row (2 d1 FLOP) and its acosh.
+    ops = (m * v0 + m * (m - 1) // 2) * (2 * d1 + 8) + steps * max_v
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    mean_vocab = v0 + m / 2
+    return dict(
+        name="merge_loop", route="cuda",
+        source="hyptokenizer_tpu_torch/ops/cuda/csrc/merge_loop.cu",
+        replaces="hyptokenizer_tpu/ops/pallas/merge_loop.py:81",
+        checked=True, max_abs_err=out["k4_row_err"], ms=ms,
+        plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None, chunk_steps=steps, chunk_merges=m,
+        chunk_bytes=nbytes, us_per_step=ms * 1e3 / steps,
+        bound_us_per_step=max(bytes_ms, ops_ms) * 1e3 / steps,
+        mean_vocab=mean_vocab, grid=K4.grid_size(trained.emb.device, d1),
+        plain_merges=int(sp.num_merges) - nm0,
+        lockstep=out["k4"], lockstep_steps=out["k4_steps"],
+        lockstep_merges=out["k4_merges"], pair_ties=out["k4_pair_ties"],
+        partner_ties=out["k4_partner_ties"],
+        row_err_over_tol=out["k4_row_err_over_tol"],
+        gram_gap_over_bound=out["k4_gram_gap_over_bound"],
+        chunk_check=out["kernel_selfcheck"],
+        chunk_check_merges=out["kernel_selfcheck_merges"],
+        chunk_check_ties=out.get("kernel_selfcheck_ties"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -604,8 +790,43 @@ def main() -> None:
           f"({k3['bound_by']}), max_abs_err {k3['max_abs_err']}, ties "
           f"{k3['ties']}; at the constructor's {k3['ctor_rows']} rows "
           f"{k3['ctor_ms']:.4f} ms", flush=True)
+    del tok, start
+
+    tok, trained, dist = main_path_distance(lines)
+    for name, n in dist["launches"].items():
+        if n <= 0:
+            fail(f"the distance-only path never launched kernel {name}")
+    print(f"distance-only: ctor_s {dist['ctor_s']:.3f} "
+          f"train_s {dist['train_s']:.3f} steps {dist['steps']} "
+          f"merges {dist['merges']} vocab {dist['vocab']} "
+          f"longest token {dist['max_len']} "
+          f"steps_per_s {dist['steps_per_s']} "
+          f"thresholds {dist['thresholds']} "
+          f"controller {json.dumps(dist['startup'])} "
+          f"after_load {dist['after_load_merges']} merges in "
+          f"{dist['after_load_s']:.3f} s "
+          f"launches {json.dumps(dist['launches'])}", flush=True)
+    k4 = check_k4(trained, tok.config)
+    k4["launches"] = dist["launches"]["merge_loop"]
+    k3["launches"] += dist["launches"]["pairwise_min_best"]
+    k3["launches_by_path"] = {
+        "all_features": alls["launches"]["pairwise_min_best"],
+        "distance_only": dist["launches"]["pairwise_min_best"]}
+    print(f"K4 lockstep: {k4['lockstep']} over {k4['lockstep_merges']} "
+          f"merges in {k4['lockstep_steps']} steps, pair_ties "
+          f"{k4['pair_ties']} partner_ties {k4['partner_ties']} "
+          f"row_err_over_tol {k4['row_err_over_tol']:.3g} "
+          f"gram_gap_over_bound {k4['gram_gap_over_bound']:.3g}; "
+          f"chunk check (512 rows, d=100): {k4['chunk_check']} over "
+          f"{k4['chunk_check_merges']} merges ({k4['chunk_check_ties']}); "
+          f"{k4['chunk_steps']}-step chunk of {k4['chunk_merges']} merges "
+          f"at mean vocab {k4['mean_vocab']:.0f}: {k4['ms']:.3f} ms on the "
+          f"card ({k4['us_per_step']:.3f} us per step, grid {k4['grid']}), "
+          f"plain {k4['plain_ms']:.1f} ms, bound {k4['bound_ms']:.4f} ms "
+          f"({k4['bound_us_per_step']:.3f} us per step, {k4['bound_by']}), "
+          f"max_abs_err {k4['max_abs_err']}", flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

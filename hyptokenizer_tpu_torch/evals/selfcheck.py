@@ -1,8 +1,9 @@
 """Kernel checks: a kernel's merge sequence against its plain version's.
 
 Port of the comparison protocol of ``hyptokenizer_tpu/evals/selfcheck.py``
-(``GRAM_ATOL`` :45, ``_compare_chunks`` :48, ``_lockstep_enhanced`` :115),
-with the port's plain PyTorch version as the oracle in place of XLA.
+(``GRAM_ATOL`` :45, ``_compare_chunks`` :48, ``_check_base_kernel`` :76,
+``_lockstep_enhanced`` :115), with the port's plain PyTorch version as the
+oracle in place of XLA.
 
 Lockstep with oracle resync. Exact merge-sequence equality over a long run
 is not a property two float32 execution paths can promise: the kernel and
@@ -20,8 +21,10 @@ noise cannot cascade:
                                 ``GRAM_ATOL`` of the other's in gram space,
                                 a verified near-tie; otherwise FAIL.
 
-:func:`_lockstep_enhanced` is that protocol chunk by chunk, as the JAX
-package runs it. :func:`_lockstep_steps` runs it step by step: each kernel
+:func:`_check_base_kernel` (kernel K4, the distance-only loop) and
+:func:`_lockstep_enhanced` (K1, K2) are that protocol chunk by chunk, as
+the JAX package runs it. :func:`_lockstep_steps` (K1, K2) and
+:func:`_lockstep_base_steps` (K4) run it step by step: each kernel
 launch makes ONE step from the plain version's state, so a near-tie can
 never cascade, and the step's candidate fold (``best_dist``/``best_j``) is
 compared too. It is the check for states whose points lie far from the
@@ -146,8 +149,43 @@ def _geodesic64(x, y, w, d, c):
     return L.project_to_hyperboloid(out, c)
 
 
+def _geodesic_eval_error(x, y, w, d, c):
+    """Bound on the error of ONE float32 evaluation of the re-projected
+    geodesic point at distance ``d`` (float64 inputs, (n, d1) rows): the
+    coefficients' exponentials carry 2 ulp each, and ``1 - exp(-2t)``
+    turns that into a relative error of 2u e^{-2t} / (1 - e^{-2t}), large
+    for a short geodesic; the time coordinate inherits the spatial errors
+    through the projection (sqrt(c)-Lipschitz in the spatial norm) plus
+    its sum's rounding."""
+    import torch
+
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+
+    u = U32
+
+    def rel(t):
+        e = torch.exp(-2.0 * t)
+        return 2 * u * e / torch.clamp_min(1.0 - e, 1e-30)
+
+    a = (1.0 - w) * d
+    b = w * d
+    num_x = torch.exp(-b) * (1.0 - torch.exp(-2.0 * a))
+    num_y = torch.exp(-a) * (1.0 - torch.exp(-2.0 * b))
+    den = torch.clamp_min(1.0 - torch.exp(-2.0 * d), L.EPS_NORM)
+    r = torch.maximum(rel(a), rel(b)) + rel(d) + 7 * u
+    terms = (num_x[:, None] * x.abs() + num_y[:, None] * y.abs()) \
+        / den[:, None]
+    sp = (terms * r[:, None])[:, 1:]
+    v = (num_x[:, None] * x + num_y[:, None] * y)[:, 1:] / den[:, None]
+    sq = (v * v).sum(-1)
+    x0 = torch.sqrt(1.0 + c * sq)
+    err0 = torch.sqrt(c) * sp.norm(dim=-1) + x.shape[1] * u * c * sq / x0
+    err = torch.cat([err0[:, None], sp], dim=-1)
+    return torch.where((d < L.EXP_ZERO_TOL)[:, None], 0.0, err)
+
+
 def _compare_rows(emb_k, emb_p, lengths, pairs, v0: int, c,
-                  row_atol: float):
+                  row_atol: float, fp32_eval: bool = False):
     """The rows ``v0 + t`` that the merges ``pairs[t]`` made on both paths.
 
     A new row is the geodesic point of its pair at a distance computed from
@@ -157,8 +195,14 @@ def _compare_rows(emb_k, emb_p, lengths, pairs, v0: int, c,
     plus the float64 geodesic point's change over that range. A pair far
     from the origin at a near-zero distance (a self-pair, whose gram is 1 up
     to rounding) is ill-conditioned and gets a wide tolerance; a resolved
-    pair a tight one. Returns (max abs error, max error / tolerance)."""
+    pair a tight one. With ``fp32_eval`` (the K4 check, whose states include
+    short geodesics far from the origin), each coordinate may also differ
+    by twice one float32 evaluation's error of the point at the pair's
+    float64 distance (:func:`_geodesic_eval_error`). Returns (max abs
+    error, max error / tolerance)."""
     import torch
+
+    from hyptokenizer_tpu_torch.ops import lorentz as L
 
     if len(pairs) == 0:
         return 0.0, 0.0
@@ -177,7 +221,11 @@ def _compare_rows(emb_k, emb_p, lengths, pairs, v0: int, c,
                      c64)
     hi = _geodesic64(x, y, w, torch.acosh(torch.clamp_min(g + bound, 1.0)),
                      c64)
-    tol = row_atol + (hi - lo).abs().max(-1).values
+    spread = (hi - lo).abs()
+    if fp32_eval:
+        d = torch.acosh(torch.clamp_min(g, 1.0 + L.ACOSH_EPS))
+        spread = spread + 2 * _geodesic_eval_error(x, y, w, d, c64)
+    tol = row_atol + spread.max(-1).values
     err = (emb_k[slots] - emb_p[slots]).abs().max(-1).values.double()
     return float(err.max()), float((err / tol).max())
 
@@ -336,6 +384,169 @@ def _lockstep_steps(tok, n_segments: int, out: Dict, name: str,
     out[f"{name}_merges"] = int(st.base.num_merges) - n0
     out[f"{name}_steps"] = steps
     for key in ("reorders", "dist_ties", "partner_ties"):
+        out[f"{name}_{key}"] = stats.get(key, 0)
+    out[f"{name}_row_err"] = row_err
+    out[f"{name}_row_err_over_tol"] = stats.get("row_err_over_tol", 0.0)
+    out[f"{name}_gram_gap_over_bound"] = stats.get("gram_gap_over_bound",
+                                                   0.0)
+
+
+def clone_merge_state(st):
+    """A ``MergeState`` whose tensors are copies (the loop updates its
+    buffers in place)."""
+    import dataclasses
+
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone()
+        for f in dataclasses.fields(st)})
+
+
+def base_state(device, n0: int = 512, d: int = 100, max_v: int = 1024,
+               threshold: float = 5.0, seed: int = 7, lengths=None,
+               sigma: float = 0.5, **config):
+    """The distance-only loop's state and configuration of
+    :func:`_check_base_kernel`: ``n0`` points at ``sigma`` from a seeded
+    generator (length-1 tokens unless ``lengths`` is given) in ``max_v``
+    slots, candidates from the constructor's pass."""
+    import torch
+
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.tokenizer import state as S
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    emb0 = L.random_points(gen, n0, d, sigma=sigma, device=device)
+    if lengths is None:
+        lengths = torch.ones((n0,), dtype=torch.int32)
+    cfg = S.MergeConfig(max_vocab_size=max_v, search_block=256, **config)
+    st = S.init_state(emb0, lengths, curvature=1.0, threshold=threshold,
+                      config=cfg, device=device)
+    return st, cfg
+
+
+def _check_base_kernel(out: Dict, st=None, cfg=None, n_chunks: int = 10,
+                       chunk: int = 25, name: str = "kernel_selfcheck",
+                       device="cuda") -> None:
+    """Kernel K4 (``state.run_merges`` on a card state) against its plain
+    version ``run_merges_plain``, chunk by chunk from the same state with
+    oracle resync, merges classified by :func:`_compare_chunks`. By default
+    the JAX package's sizes: 512 points at d=100, 1024 slots, threshold 5,
+    10 chunks of 25 steps. Writes ``out[name]`` ("pass" or "FAIL ..."),
+    ``out[name + "_merges"]`` and, when any, ``out[name + "_ties"]``."""
+    from hyptokenizer_tpu_torch.tokenizer import state as S
+
+    if st is None:
+        st, cfg = base_state(device)
+    stats: Dict = {}
+    total = 0
+    ok = True
+    n_start = int(st.num_merges)
+    for _ in range(n_chunks):
+        n0 = int(st.num_merges)
+        st_k = S.run_merges(clone_merge_state(st), cfg, chunk)
+        st_x = S.run_merges_plain(clone_merge_state(st), cfg, chunk)
+        nk, nx = int(st_k.num_merges), int(st_x.num_merges)
+        ok = _compare_chunks(
+            st_k.merges[n0:nk].cpu().numpy(),
+            st_k.merge_dists[n0:nk].cpu().numpy(),
+            st_x.merges[n0:nx].cpu().numpy(),
+            st_x.merge_dists[n0:nx].cpu().numpy(), stats)
+        total = nx - n_start
+        st = st_x  # oracle resync: noise never cascades across chunks
+        if not ok or bool(st.stopped):
+            break
+    out[name] = "pass" if ok else f"FAIL {stats.get('first_bad')}"
+    out[f"{name}_merges"] = total
+    if stats.get("reorders") or stats.get("dist_ties"):
+        out[f"{name}_ties"] = (f"reorders={stats.get('reorders', 0)} "
+                               f"dist_ties={stats.get('dist_ties', 0)}")
+
+
+BASE_SCALARS = ("vocab_size", "num_merges", "step", "threshold",
+                "empty_rounds", "stopped")
+
+
+def _lockstep_base_steps(st, cfg, n_steps: int, out: Dict, name: str,
+                         row_atol: float = 1e-5, kernel=None) -> None:
+    """Kernel K4 against ``run_merges_plain`` step by step from ``st``
+    (left untouched): each step, one launch of ONE step and one plain step
+    from the plain version's state. The loop scalars must be equal; the
+    merged pair equal, or a tie within the two pairs' gram rounding bounds
+    (:func:`gram_error_bound`); when equal, the merge distance exactly, the
+    new row as in :func:`_compare_rows`, and the candidates as in
+    :func:`_compare_candidates` against the plain fold re-run on the
+    kernel's own rows (:func:`_refold`). The run continues from the plain
+    state. Writes ``out[name]`` ("pass" or "FAIL ..."), ``_merges``,
+    ``_steps``, ``_pair_ties``, ``_partner_ties``, ``_row_err``,
+    ``_row_err_over_tol`` and ``_gram_gap_over_bound``. ``kernel`` (a
+    ``(state, config, n_steps)`` function) defaults to K4's wrapper."""
+    import torch
+
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop
+    from hyptokenizer_tpu_torch.tokenizer import state as S
+
+    if kernel is None:
+        kernel = merge_loop.run_merges_chunk
+
+    stats: Dict = {}
+    steps = 0
+    row_err = 0.0
+    ok = True
+    n_start = int(st.num_merges)
+    d1 = st.emb.shape[1]
+    while ok and steps < n_steps and not bool(st.stopped):
+        sk = kernel(clone_merge_state(st), cfg, 1)
+        sp = S.run_merges_plain(clone_merge_state(st), cfg, 1)
+        a = [getattr(sk, f).item() for f in BASE_SCALARS]
+        b = [getattr(sp, f).item() for f in BASE_SCALARS]
+        steps += 1
+        if a != b:
+            stats["first_bad"] = {"step": int(st.step), "kernel": a,
+                                  "plain": b}
+            ok = False
+            break
+        nm = int(st.num_merges)
+        if int(sp.num_merges) > nm:
+            pk, pp = sk.merges[nm], sp.merges[nm]
+            v0 = int(st.vocab_size)
+            if not torch.equal(pk, pp):
+                rows = torch.stack([pk[0], pp[0]]).long()
+                cols = torch.stack([pk[1], pp[1]]).long()
+                e64 = st.emb.double()
+                sig = torch.ones(d1, dtype=torch.float64, device=e64.device)
+                sig[1:] = -1.0
+                g = (e64[rows] * sig * e64[cols]).sum(-1)
+                bound = gram_error_bound(st.emb, rows, cols, d1).sum()
+                if float((g[0] - g[1]).abs()) > float(bound):
+                    stats["first_bad"] = {"step": int(st.step),
+                                          "kernel": pk.tolist(),
+                                          "plain": pp.tolist()}
+                    ok = False
+                stats["pair_ties"] = stats.get("pair_ties", 0) + 1
+            else:
+                err, ratio = _compare_rows(sk.emb, sp.emb, st.lengths,
+                                           pp[None], v0, st.curvature,
+                                           row_atol, fp32_eval=True)
+                row_err = max(row_err, err)
+                stats["row_err_over_tol"] = max(
+                    stats.get("row_err_over_tol", 0.0), ratio)
+                same = torch.equal(sk.lengths, sp.lengths) and \
+                    torch.equal(sk.merge_dists[nm], sp.merge_dists[nm])
+                if not same or ratio > 1.0:
+                    stats["first_bad"] = {"step": int(st.step),
+                                          "row_err": err,
+                                          "row_err_over_tol": ratio,
+                                          "bookkeeping_equal": same}
+                    ok = False
+                else:
+                    ok = _compare_candidates(
+                        sk, _refold(st, sk, pp[None], cfg.max_token_len),
+                        stats)
+        st = sp   # oracle resync: noise never cascades across steps
+    out[name] = "pass" if ok else f"FAIL {stats.get('first_bad')}"
+    out[f"{name}_merges"] = int(st.num_merges) - n_start
+    out[f"{name}_steps"] = steps
+    for key in ("pair_ties", "partner_ties"):
         out[f"{name}_{key}"] = stats.get(key, 0)
     out[f"{name}_row_err"] = row_err
     out[f"{name}_row_err_over_tol"] = stats.get("row_err_over_tol", 0.0)

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and includes
 no PyTorch header, so it compiles in seconds. It is built at first use into
 ``hyptokenizer_tpu_torch/_build/`` (listed in ``.gitignore``), into a file
-named by the hash of its source, so an edited source is never served stale.
+named by the hash of its source and of the headers it includes from
+``csrc/`` (``common.cuh``), so an edited source or header is never served
+stale.
 ``build_all`` starts one nvcc per source, all at once. A failed build
 raises; there is no fallback.
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,11 +50,36 @@ def sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _included(path: str, seen: set) -> None:
+    """Add ``path`` and every file under ``csrc/`` that it includes, at any
+    depth (quoted includes, resolved beside the including file)."""
+    if path in seen:
+        return
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        dep = os.path.normpath(os.path.join(os.path.dirname(path),
+                                            inc.decode()))
+        if os.path.exists(dep):
+            _included(dep, seen)
+
+
 def _target(name: str) -> tuple:
+    """(source, library): the library is named by a hash of the source and
+    of every header under ``csrc/`` it includes, so that an edit of either
+    is never served a stale build."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    files: set = set()
+    _included(src, files)
+    h = hashlib.sha256()
+    for path in sorted(files):
+        with open(path, "rb") as f:
+            h.update(os.path.relpath(path, CSRC).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all(names=None) -> dict:

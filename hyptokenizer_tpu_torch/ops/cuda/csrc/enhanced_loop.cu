@@ -33,16 +33,22 @@
 //
 // Design. One thread block, looping over the steps; the state stays in
 // device memory (served from L2) and the loop scalars in shared memory.
-// Each applied merge of a batch is one warp (the midpoint needs only the
-// pre-batch rows, and a batch never refers to a token made in the same
-// batch). K2's fold stages the <= nb+1 new rows, signature-folded, in shared
-// memory; one thread per row r < vocab_post sums their grams with its row,
-// applies the length gate, and keeps a strict < in increasing slot order
-// (which gives the plain version's lowest-column tie break). It needs only
-// the rows below vocab_post, where the TPU kernel streams the whole padded
-// buffer; the output is the same. The 128-lane row layout, the
-// sum-extraction reads, the matmul prefix sums and the (g, 128, 128) fold
-// tiles of the TPU kernel are TPU workarounds and are gone.
+// The batch's arrays live in dynamic shared memory sized by merge_batch.
+// The warps take the applied merges of a batch by warp stride, one merge
+// at a time (the midpoint needs only the pre-batch rows, and a batch never
+// refers to a token made in the same batch). K2's fold stages the <= nb+1
+// new rows, signature-folded, in shared memory (all at once when they fit
+// kNewFloats, else kFoldGroup rows at a time in chunks of coordinates);
+// one thread per row r < vocab_post sums their grams with its row, applies
+// the length gate, and keeps a strict < in increasing slot order (which
+// gives the plain version's lowest-column tie break). It needs only the
+// rows below vocab_post, where the TPU kernel streams the whole padded
+// buffer; the output is the same. The dense candidate's coherence stages
+// its midpoint in chunks of kMidChunk coordinates and holds kSampleBlock
+// sample grams at a time, so neither d nor the sample count is bounded.
+// The 128-lane row layout, the sum-extraction reads, the matmul prefix
+// sums and the (g, 128, 128) fold tiles of the TPU kernel are TPU
+// workarounds and are gone.
 //
 // Bound. K1: a serial chain of merge_batch-sized steps, each touching a few
 // K-entry queues and at most 2*nb+nb embedding rows: it moves far too few
@@ -70,20 +76,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace hyptok;
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBatch = 32;  // one warp per applied merge
-constexpr int kMaxD1 = 128;    // K2 stages new rows of up to 128 floats
+constexpr int kMaxBatch = 8192;  // queue batch; its arrays are dynamic
+constexpr int kMidChunk = 128;   // K2 stages the dense midpoint by 128 floats
+constexpr int kNewFloats = 8192; // K2's staging buffer for the fold's rows
 constexpr int kFoldGroup = 8;  // new columns summed per pass over a row
-constexpr unsigned kFull = 0xffffffffu;
-
-constexpr float kAcoshEps = 1e-8f;
-constexpr float kGradEps = 1e-6f;  // coherence distance clamp
-constexpr float kEpsNorm = 1e-8f;
-constexpr float kExpZeroTol = 1e-6f;
-constexpr float kThresholdCap = 1e6f;
 constexpr int kHashP1 = 32749;
 constexpr int kHashP2 = 32719;
 
@@ -129,20 +133,6 @@ struct Params {
   int needs_corpus, use_freq, use_comp, max_token_len;
   float w_alpha, w_beta, w_gamma, w_comp, w_morph;
 };
-
-__device__ __forceinline__ int warp_sum_int(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum_float(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float acosh_log(float x) {
-  return logf(x + sqrtf(x * x - 1.0f));
-}
 
 // Coefficients of the length-weighted geodesic point of rows ci and cj
 // (lorentz.geodesic_point), summed over one warp:
@@ -250,22 +240,12 @@ __device__ bool in_sorted(const int* table, int len, int size, int key) {
   return table[pos] == key && pos < size;
 }
 
-// Keep the lower (value, index) pair; ties go to the lower index.
-__device__ __forceinline__ void argmin_step(float& v, int& i, float ov,
-                                            int oi) {
-  if (ov < v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
+constexpr int kSampleBlock = 512;  // K2's coherence grams held at a time
 
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
-  for (int o = 16; o > 0; o >>= 1) {
-    argmin_step(v, i, __shfl_xor_sync(kFull, v, o), __shfl_xor_sync(kFull, i, o));
-  }
-}
-
-constexpr int kMaxSamples = 512;  // K2's coherence samples per sync
+// Bytes of the batch arrays in dynamic shared memory for a queue batch nb:
+// the selected queue entries (nb) and the applied merges (nb + 1, with the
+// dense candidate): rows i, j, distance, new length.
+inline int batch_smem_bytes(int nb) { return (nb + 4 * (nb + 1)) * 4; }
 
 template <bool kDense>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -274,18 +254,21 @@ enhanced_loop_kernel(Params p) {
   __shared__ float s_f[F_COUNT];
   __shared__ int s_scan[kWarps];
   __shared__ int s_live[kWarps];
-  __shared__ int s_sel[kMaxBatch];
-  __shared__ int s_ci[kMaxBatch];
-  __shared__ int s_cj[kMaxBatch];
-  __shared__ float s_cd[kMaxBatch];
+  extern __shared__ int s_dyn[];
+  int* s_sel = s_dyn;                    // (nb,)
+  int* s_ci = s_sel + p.nb;              // (nb + 1,)
+  int* s_cj = s_ci + p.nb + 1;           // (nb + 1,)
+  float* s_cd = reinterpret_cast<float*>(s_cj + p.nb + 1);  // (nb + 1,)
+  int* s_nlen = reinterpret_cast<int*>(s_cd + p.nb + 1);    // (nb + 1,)
   __shared__ int s_halt, s_need_rs, s_n_apply, s_n_valid, s_n_live;
   // K2: the dense candidate, its coherence terms and the fold's new rows.
   __shared__ float s_red_f[kWarps];
   __shared__ int s_red_i[kWarps];
-  __shared__ float s_mid[kDense ? kMaxD1 : 1];
-  __shared__ float s_coh[kDense ? kMaxSamples : 1];
-  __shared__ float s_new[kDense ? (kMaxBatch + kFoldGroup) * kMaxD1 : 1];
-  __shared__ int s_nlen[kMaxBatch];
+  __shared__ float s_mid[kDense ? kMidChunk : 1];
+  __shared__ float s_coh[kDense ? kSampleBlock : 1];
+  __shared__ float s_new[kDense ? kNewFloats : 1];
+  __shared__ float s_geo[3];
+  __shared__ int s_degen;
   __shared__ int s_di, s_dj, s_dvalid;
   __shared__ float s_dd, s_dscore;
 
@@ -374,34 +357,70 @@ enhanced_loop_kernel(Params p) {
       // Its full score at this phase (enhanced_state._full_scores).
       if (dvalid) {
         const float c = s_f[F_C];
+        // Coherence: the midpoint against the sync's samples, in blocks of
+        // kSampleBlock samples, each gram summed over chunks of kMidChunk
+        // coordinates of the midpoint; thread 0 adds up the distances in
+        // sample order.
+        float coh_sum = 0.0f;
+        int coh_cnt = 0;
         if (p.use_freq) {
-          // Coherence: the midpoint against the sync's samples.
           if (warp == 0) {
             const Geodesic g = geodesic(p, lane, di, dj);
-            const float* xi = p.emb + (size_t)di * p.d1;
-            const float* xj = p.emb + (size_t)dj * p.d1;
-            for (int e = lane; e < p.d1; e += 32) {
-              const float v = g.degenerate
-                                  ? xi[e]
-                                  : (g.num_x * xi[e] + g.num_y * xj[e]) / g.den;
-              s_mid[e] = e == 0 ? v : -v;
-            }
-          }
-          __syncthreads();
-          for (int q = warp; q < p.n_samples; q += kWarps) {
-            const int sid = p.samples[q];
-            const float* y = p.emb + (size_t)sid * p.d1;
-            float gram = 0.0f;
-            for (int e = lane; e < p.d1; e += 32) gram += s_mid[e] * y[e];
-            gram = warp_sum_float(gram);
             if (lane == 0) {
-              s_coh[q] = (sid != di && sid != dj)
-                             ? acosh_log(fmaxf(gram, 1.0f + kGradEps)) /
-                                   sqrtf(c)
-                             : -1.0f;
+              s_geo[0] = g.num_x;
+              s_geo[1] = g.num_y;
+              s_geo[2] = g.den;
+              s_degen = g.degenerate;
             }
           }
-          __syncthreads();
+          const float* xi = p.emb + (size_t)di * p.d1;
+          const float* xj = p.emb + (size_t)dj * p.d1;
+          for (int q0 = 0; q0 < p.n_samples; q0 += kSampleBlock) {
+            const int nq = min(kSampleBlock, p.n_samples - q0);
+            for (int c0 = 0; c0 < p.d1; c0 += kMidChunk) {
+              const int c1 = min(c0 + kMidChunk, p.d1);
+              __syncthreads();
+              if (warp == 0) {
+                const float num_x = s_geo[0];
+                const float num_y = s_geo[1];
+                const float den = s_geo[2];
+                for (int e = c0 + lane; e < c1; e += 32) {
+                  const float v =
+                      s_degen ? xi[e] : (num_x * xi[e] + num_y * xj[e]) / den;
+                  s_mid[e - c0] = e == 0 ? v : -v;
+                }
+              }
+              __syncthreads();
+              for (int q = warp; q < nq; q += kWarps) {
+                const int sid = p.samples[q0 + q];
+                const float* y = p.emb + (size_t)sid * p.d1;
+                float gram = 0.0f;
+                for (int e = c0 + lane; e < c1; e += 32) {
+                  gram += s_mid[e - c0] * y[e];
+                }
+                gram = warp_sum_float(gram);
+                if (lane == 0) {
+                  if (c0 > 0) gram += s_coh[q];
+                  s_coh[q] = gram;
+                  if (c1 == p.d1) {
+                    s_coh[q] = (sid != di && sid != dj)
+                                   ? acosh_log(fmaxf(gram, 1.0f + kGradEps)) /
+                                         sqrtf(c)
+                                   : -1.0f;
+                  }
+                }
+              }
+            }
+            __syncthreads();
+            if (tid == 0) {
+              for (int q = 0; q < nq; ++q) {
+                if (s_coh[q] >= 0.0f) {
+                  coh_sum += s_coh[q];
+                  ++coh_cnt;
+                }
+              }
+            }
+          }
         }
         if (tid == 0) {
           const float dd = s_dd;
@@ -414,15 +433,7 @@ enhanced_loop_kernel(Params p) {
           if (p.use_freq) {
             const float denom = log1pf((float)max(s_i[S_MAX_COUNT], 1));
             freq_score = log1pf((float)freq) / fmaxf(denom, 1e-9f);
-            float sum = 0.0f;
-            int cnt = 0;
-            for (int q = 0; q < p.n_samples; ++q) {
-              if (s_coh[q] >= 0.0f) {
-                sum += s_coh[q];
-                ++cnt;
-              }
-            }
-            const float avg = sum / (float)max(cnt, 1);
+            const float avg = coh_sum / (float)max(coh_cnt, 1);
             semantic = 1.0f / (1.0f + expf(avg - thr));
           }
           if (p.use_comp) {
@@ -546,14 +557,17 @@ enhanced_loop_kernel(Params p) {
     __syncthreads();
 
     const int n_apply = s_n_apply;
-    if (warp < n_apply) {
-      merge_one(p, lane, s_ci[warp], s_cj[warp], s_i[S_VOCAB] + warp,
-                s_i[S_NM] + warp, s_cd[warp], s_f[F_C]);
+    // One warp per merge, by warp stride over the batch.
+    for (int t = warp; t < n_apply; t += kWarps) {
+      merge_one(p, lane, s_ci[t], s_cj[t], s_i[S_VOCAB] + t, s_i[S_NM] + t,
+                s_cd[t], s_f[F_C]);
     }
-    if (kDense && tid < n_apply) {
+    if (kDense) {
       // Invalidate row ci iff its tracked best was just consumed (best_j is
       // the pre-batch one: the fold below has not run).
-      if (p.best_j[s_ci[tid]] == s_cj[tid]) p.best_dist[s_ci[tid]] = INFINITY;
+      for (int t = tid; t < n_apply; t += kThreads) {
+        if (p.best_j[s_ci[t]] == s_cj[t]) p.best_dist[s_ci[t]] = INFINITY;
+      }
     }
     if (corpus && n_apply > 0) {
       // Consume every applied ordered pair in all three phase queues.
@@ -573,38 +587,74 @@ enhanced_loop_kernel(Params p) {
     if constexpr (kDense) {
       if (n_apply > 0) {
         // The batched column fold: every row r < vocab_post gains the new
-        // columns slot > r that pass the length gate.
+        // columns slot > r that pass the length gate. The new rows,
+        // signature-folded, are staged in shared memory all at once when
+        // they fit (`whole`), else kFoldGroup rows at a time in chunks of
+        // `kc` coordinates, restaged for every pass of kThreads rows.
         const int vocab0 = s_i[S_VOCAB];
-        for (int f = tid; f < n_apply * p.d1; f += kThreads) {
-          const int t = f / p.d1;
-          const int e = f - t * p.d1;
-          const float v = p.emb[(size_t)(vocab0 + t) * p.d1 + e];
-          s_new[t * kMaxD1 + e] = e == 0 ? v : -v;
+        const int n_pad = (n_apply + kFoldGroup - 1) / kFoldGroup * kFoldGroup;
+        const bool whole = n_pad * p.d1 <= kNewFloats;
+        const int kc = whole ? p.d1 : kNewFloats / kFoldGroup;
+        if (whole) {
+          for (int f = tid; f < n_apply * p.d1; f += kThreads) {
+            const int t = f / p.d1;
+            const int e = f - t * p.d1;
+            const float v = p.emb[(size_t)(vocab0 + t) * p.d1 + e];
+            s_new[t * p.d1 + e] = e == 0 ? v : -v;
+          }
         }
-        if (tid < n_apply) s_nlen[tid] = p.lengths[vocab0 + tid];
+        for (int t = tid; t < n_apply; t += kThreads) {
+          s_nlen[t] = p.lengths[vocab0 + t];
+        }
         __syncthreads();
         const float sqrt_c = sqrtf(s_f[F_C]);
         const int vpost = vocab0 + n_apply;
-        for (int r = tid; r < vpost; r += kThreads) {
-          const float* row = p.emb + (size_t)r * p.d1;
-          const int lr = p.lengths[r];
-          float best = p.best_dist[r];
+        for (int r0 = 0; r0 < vpost; r0 += kThreads) {
+          const int r = r0 + tid;
+          const bool live = r < vpost;
+          const float* row = p.emb + (size_t)(live ? r : 0) * p.d1;
+          const int lr = live ? p.lengths[r] : 0;
+          float best = live ? p.best_dist[r] : INFINITY;
           int arg = -1;
           for (int t0 = 0; t0 < n_apply; t0 += kFoldGroup) {
             float acc[kFoldGroup];
 #pragma unroll
             for (int q = 0; q < kFoldGroup; ++q) acc[q] = 0.0f;
-            for (int e = 0; e < p.d1; ++e) {
-              const float x = row[e];
+            for (int c0 = 0; c0 < p.d1; c0 += kc) {
+              const int c1 = min(c0 + kc, p.d1);
+              // s_new[q * stride + (e - off)] is coordinate e of new row
+              // t0 + q.
+              const float* buf = s_new + (whole ? t0 * p.d1 : 0);
+              const int off = whole ? 0 : c0;
+              if (!whole) {
+                __syncthreads();
+                const int w = c1 - c0;
+                for (int f = tid; f < kFoldGroup * w; f += kThreads) {
+                  const int q = f / w;
+                  const int e = c0 + f - q * w;
+                  const int t = t0 + q;
+                  const float v =
+                      t < n_apply ? p.emb[(size_t)(vocab0 + t) * p.d1 + e]
+                                  : 0.0f;
+                  s_new[q * kc + e - c0] = e == 0 ? v : -v;
+                }
+                __syncthreads();
+              }
+              const int stride = kc;
+              if (live) {
+                for (int e = c0; e < c1; ++e) {
+                  const float x = row[e];
 #pragma unroll
-              for (int q = 0; q < kFoldGroup; ++q) {
-                acc[q] = fmaf(s_new[(t0 + q) * kMaxD1 + e], x, acc[q]);
+                  for (int q = 0; q < kFoldGroup; ++q) {
+                    acc[q] = fmaf(buf[q * stride + e - off], x, acc[q]);
+                  }
+                }
               }
             }
 #pragma unroll
             for (int q = 0; q < kFoldGroup; ++q) {
               const int t = t0 + q;
-              if (t < n_apply && r < vocab0 + t &&
+              if (live && t < n_apply && r < vocab0 + t &&
                   (p.max_token_len <= 0 ||
                    lr + s_nlen[t] <= p.max_token_len)) {
                 const float d =
@@ -709,6 +759,20 @@ Params base_params(void* emb, void* lengths, void* byte_lengths,
   return p;
 }
 
+// Launch one block of the K1 or K2 instance with the batch arrays of `nb`
+// in dynamic shared memory.
+template <bool kDense>
+int launch(const Params& p, void* stream) {
+  const int smem = batch_smem_bytes(p.nb);
+  cudaError_t err = cudaFuncSetAttribute(
+      enhanced_loop_kernel<kDense>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  enhanced_loop_kernel<kDense>
+      <<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int enhanced_loop_launch(
@@ -725,9 +789,7 @@ extern "C" int enhanced_loop_launch(
       q_i, q_j, q_dist, q_score, powers, si, sf, max_v, d1, k, nb, n_steps,
       max_hash_len, use_hier, phase2, phase3, thr1, thr2, thr3, adaptive,
       growth_every, growth, empty_after, empty_growth, empty_stop);
-  enhanced_loop_kernel<false>
-      <<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch<false>(p, stream);
 }
 
 // K2: the arguments of enhanced_loop_launch, then the dense channel's
@@ -746,9 +808,7 @@ extern "C" int enhanced_loop_dense_launch(
     int use_freq, int use_comp, int max_token_len,
     float w_alpha, float w_beta, float w_gamma, float w_comp, float w_morph,
     void* stream) {
-  // The dense candidate takes one more warp than the queue's batch.
-  if (nb < 1 || nb + 1 > kMaxBatch || d1 > kMaxD1 ||
-      n_samples > kMaxSamples || table_size < 1 || morph_len < 1 ||
+  if (nb < 1 || nb > kMaxBatch || table_size < 1 || morph_len < 1 ||
       word_len < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -777,7 +837,5 @@ extern "C" int enhanced_loop_dense_launch(
   p.w_gamma = w_gamma;
   p.w_comp = w_comp;
   p.w_morph = w_morph;
-  enhanced_loop_kernel<true>
-      <<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch<true>(p, stream);
 }

@@ -11,7 +11,9 @@
 // (inf, 0), which the wrapper writes before the launch.
 //
 // Design (simple first). A block owns a tile of kTile rows, kept in shared
-// memory pre-multiplied by the metric signature for its whole sweep, and
+// memory pre-multiplied by the metric signature for its whole sweep (when
+// d1 <= kDepth; a wider state is staged in slabs of kDepth coordinates,
+// the row tile's slab beside each column tile's, so any d1 fits), and
 // sweeps column tiles of kTile rows staged in shared memory, from the
 // diagonal tile to the last tile of the active prefix: tiles wholly below
 // the diagonal or wholly outside the prefix are skipped, as the TPU kernel
@@ -36,32 +38,34 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace hyptok;
 
 constexpr int kTile = 64;            // rows and columns per tile
 constexpr int kThreads = 256;        // 16 x 16 threads, 4 x 4 each
 constexpr int kStride = kTile + 1;   // padded shared row: conflict-free
-constexpr float kAcoshEps = 1e-8f;
+constexpr int kDepth = 128;          // coordinates staged at a time
 
-__device__ __forceinline__ float acosh_log(float x) {
-  return logf(x + sqrtf(x * x - 1.0f));
-}
-
-// Stage rows [tile * kTile, +kTile) of emb, transposed to [k][row], into
-// `dst`, times the signature when `signed_rows`. Rows past max_v are zero.
+// Stage coordinates [k0, k1) of rows [tile * kTile, +kTile) of emb,
+// transposed to [k - k0][row], into `dst`, times the signature when
+// `signed_rows`. Rows past max_v are zero.
 __device__ void stage(float* dst, const float* emb, int tile, int max_v,
-                      int d1, bool signed_rows) {
+                      int d1, int k0, int k1, bool signed_rows) {
   const int row0 = tile * kTile;
-  const int n = kTile * d1;
+  const int w = k1 - k0;
+  const int n = kTile * w;
   for (int f = threadIdx.x; f < n; f += kThreads) {
-    const int r = f / d1;
-    const int k = f - r * d1;
+    const int r = f / w;
+    const int k = k0 + f - r * w;
     float v = 0.0f;
     if (row0 + r < max_v) {
       v = emb[(size_t)(row0 + r) * d1 + k];
       if (signed_rows && k > 0) v = -v;
     }
-    dst[k * kStride + r] = v;
+    dst[(k - k0) * kStride + r] = v;
   }
 }
 
@@ -70,8 +74,10 @@ pairwise_kernel(const float* __restrict__ emb, float* __restrict__ best_dist,
                 int* __restrict__ best_j, int max_v, int d1, int vocab,
                 float sqrt_c) {
   extern __shared__ float smem[];
-  float* xs = smem;                     // [d1][kStride] signed row tile
-  float* ys = smem + d1 * kStride;      // [d1][kStride] column tile
+  const int depth = min(d1, kDepth);
+  const bool resident = d1 <= kDepth;   // the row tile stays staged
+  float* xs = smem;                     // [depth][kStride] signed row tile
+  float* ys = smem + depth * kStride;   // [depth][kStride] column tile
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int n_tiles = (vocab + kTile - 1) / kTile;
@@ -80,7 +86,7 @@ pairwise_kernel(const float* __restrict__ emb, float* __restrict__ best_dist,
     const int it = pass == 0 ? blockIdx.x : n_tiles - 1 - blockIdx.x;
     if (pass == 1 && it <= (int)blockIdx.x) break;
     __syncthreads();
-    stage(xs, emb, it, max_v, d1, true);
+    if (resident) stage(xs, emb, it, max_v, d1, 0, d1, true);
 
     float run_min[4];
     int run_arg[4];
@@ -89,18 +95,25 @@ pairwise_kernel(const float* __restrict__ emb, float* __restrict__ best_dist,
       run_arg[a] = 0x7fffffff;
     }
     for (int jt = it; jt < n_tiles; ++jt) {
-      __syncthreads();
-      stage(ys, emb, jt, max_v, d1, false);
-      __syncthreads();
       float acc[4][4];
       for (int a = 0; a < 4; ++a)
         for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-      for (int k = 0; k < d1; ++k) {
-        float xv[4], yv[4];
-        for (int a = 0; a < 4; ++a) xv[a] = xs[k * kStride + ty + 16 * a];
-        for (int b = 0; b < 4; ++b) yv[b] = ys[k * kStride + tx + 16 * b];
-        for (int a = 0; a < 4; ++a)
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
+      // The feature axis in slabs of `depth` coordinates (one slab, and the
+      // row tile staged once per sweep, when d1 <= kDepth).
+      for (int k0 = 0; k0 < d1; k0 += depth) {
+        const int k1 = min(k0 + depth, d1);
+        __syncthreads();
+        if (!resident) stage(xs, emb, it, max_v, d1, k0, k1, true);
+        stage(ys, emb, jt, max_v, d1, k0, k1, false);
+        __syncthreads();
+        for (int k = 0; k < k1 - k0; ++k) {
+          float xv[4], yv[4];
+          for (int a = 0; a < 4; ++a) xv[a] = xs[k * kStride + ty + 16 * a];
+          for (int b = 0; b < 4; ++b) yv[b] = ys[k * kStride + tx + 16 * b];
+          for (int a = 0; a < 4; ++a)
+            for (int b = 0; b < 4; ++b)
+              acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
+        }
       }
       for (int a = 0; a < 4; ++a) {
         const int row = it * kTile + ty + 16 * a;
@@ -142,7 +155,7 @@ pairwise_kernel(const float* __restrict__ emb, float* __restrict__ best_dist,
 }  // namespace
 
 extern "C" int pairwise_smem_bytes(int d1) {
-  return 2 * d1 * kStride * (int)sizeof(float);
+  return 2 * (d1 < kDepth ? d1 : kDepth) * kStride * (int)sizeof(float);
 }
 
 extern "C" int pairwise_min_best_launch(void* emb, void* best_dist,

@@ -35,9 +35,7 @@ from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 from hyptokenizer_tpu_torch.tokenizer import scoring
 
 SOURCE = "enhanced_loop"
-MAX_BATCH = 32          # one warp per merge of a batch (csrc/enhanced_loop.cu)
-MAX_D1 = 128            # K2 stages new rows of up to 128 floats
-MAX_SAMPLES = 512       # K2's coherence samples per sync
+MAX_BATCH = 8192        # the batch's arrays fill shared memory beyond this
 SEGMENT_STEPS = 1024    # steps per launch (the JAX package's segment_grid)
 NO_CURVATURE_STOP = 1 << 30
 
@@ -100,11 +98,9 @@ def _check_tensors(obj, want: dict, prefix: str = "") -> None:
 def _check_cuda_state(st, config) -> None:
     nb = max(1, config.merge_batch)
     dense = uses_dense(config)
-    if nb + int(dense) > MAX_BATCH:
-        raise ValueError(f"merge_batch {nb} > {MAX_BATCH - int(dense)}: the "
-                         "kernel runs one warp per merge of a batch"
-                         + (" and one for the dense candidate" if dense
-                            else ""))
+    if nb > MAX_BATCH:
+        raise ValueError(f"merge_batch {nb} > {MAX_BATCH}: the batch's "
+                         "arrays would outgrow shared memory")
     want = {
         "emb": torch.float32, "lengths": torch.int32,
         "merges": torch.int32, "merge_dists": torch.float32,
@@ -126,10 +122,6 @@ def _check_cuda_state(st, config) -> None:
     if st.q_i.shape != (3, config.queue_size):
         raise ValueError(f"queues of shape {tuple(st.q_i.shape)}, expected "
                          f"(3, {config.queue_size})")
-    if dense and (st.base.emb.shape[1] > MAX_D1
-                  or st.coh_samples.shape[0] > MAX_SAMPLES):
-        raise ValueError(f"the dense kernel takes d+1 <= {MAX_D1} and at most "
-                         f"{MAX_SAMPLES} coherence samples")
 
 
 def run_segment_cuda(st, config, m_budget: int, s_budget: int,

@@ -20,7 +20,6 @@ from hyptokenizer_tpu_torch.ops.cuda import _build
 from hyptokenizer_tpu_torch.tokenizer import search
 
 SOURCE = "pairwise"
-MAX_SMEM = 232_448      # dynamic shared memory a Hopper block may opt into
 
 launches = 0            # kernel launches since the last reset_launches()
 
@@ -37,8 +36,6 @@ def _launcher():
         ptr, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr, ptr, ptr, i, i, i, ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
-        lib.pairwise_smem_bytes.argtypes = [i]
-        lib.pairwise_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -64,9 +61,6 @@ def pairwise_min_best(emb: torch.Tensor, vocab_size, c):
     if not 0 <= vocab <= max_v:
         raise ValueError(f"vocab_size {vocab} outside [0, {max_v}]")
     lib = _launcher()
-    if lib.pairwise_smem_bytes(d1) > MAX_SMEM:
-        raise ValueError(f"d+1 = {d1} needs more shared memory than a block "
-                         "may use")
     best_dist = torch.full((max_v,), float("inf"), device=emb.device)
     best_j = torch.zeros((max_v,), dtype=torch.int32, device=emb.device)
     rc = lib.pairwise_min_best_launch(

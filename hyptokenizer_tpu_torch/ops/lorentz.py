@@ -7,10 +7,15 @@ coordinate first, ``<x,y>_L = x0*y0 - sum_i x_i y_i`` is positive on the
 sheet, ``acosh`` takes its log form and its argument is clamped to
 ``>= 1 + eps``.
 
-Inner products run in full float32 (TF32 is off, ``_device.py``).
+Every gram runs in full float32 whatever the process-wide matmul setting:
+:func:`pairwise_minkowski_dot` switches TF32 off around its matmul and
+restores the caller's setting (:func:`fp32_matmul`), as the JAX package
+pins ``precision=DOT_PREC`` on every call.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -91,9 +96,29 @@ def distance(x: torch.Tensor, y: torch.Tensor, c=1.0,
                                                   device=x.device))
 
 
+@contextlib.contextmanager
+def fp32_matmul():
+    """Run the enclosed matmuls in full float32 (no TF32), then restore the
+    process-wide setting, whatever a caller set it to with
+    ``torch.set_float32_matmul_precision`` after ``_device.py``'s import."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def pairwise_minkowski_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Gram matrix ``G[i, j] = <x_i, y_j>_L`` as one float32 matmul."""
-    return (x * _signature(x.shape[-1], x)) @ y.transpose(-1, -2)
+    """Gram matrix ``G[i, j] = <x_i, y_j>_L`` as one full-float32 matmul.
+
+    Every gram of the port goes through here."""
+    with fp32_matmul():
+        return torch.matmul(x * _signature(x.shape[-1], x),
+                            y.transpose(-1, -2))
 
 
 def pairwise_dist(x: torch.Tensor, y: torch.Tensor, c=1.0,

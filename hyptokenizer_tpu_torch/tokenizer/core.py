@@ -7,26 +7,35 @@ package's (``vocab.json``, ``merges.json``, ``config.json``,
 ``embeddings.npy``/``embeddings.pt``, ``training_stats.json``), byte for
 byte, so artifacts move between the two packages in both directions.
 
-A loaded tokenizer re-scans its dense candidates (``search.full_pass_best``
-with the loaded history and the length gate), so that training can go on
-after ``load``. The distance-only training loop belongs to a later slice.
+``optimize_merges`` is the distance-only training loop: the startup
+threshold controller once per tokenizer, then chunks of ``state.run_merges``
+(kernel K4 on the card). A loaded tokenizer re-scans its dense candidates
+(``search.full_pass_best`` with the loaded history and the length gate), so
+that training goes on after ``load``. The distance statistics draw their
+pairs from ``self.stats_sampler`` (``state.StatsSampler``, apart from any
+training draws, as the JAX package keys them apart; a test injects the JAX
+package's draws).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import os
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hyptokenizer_tpu_torch import _device
-from hyptokenizer_tpu_torch.ops import lorentz as L
 from hyptokenizer_tpu_torch.tokenizer import search as search_lib
 from hyptokenizer_tpu_torch.tokenizer import state as state_lib
 from hyptokenizer_tpu_torch.tokenizer.encode import Encoder
 from hyptokenizer_tpu_torch.tokenizer.normalize import NormalizerConfig
+
+logger = logging.getLogger(__name__)
 
 
 class HyperbolicTokenizer:
@@ -62,7 +71,8 @@ class HyperbolicTokenizer:
         self.training_stats: List[Dict] = []
         self.training_summary: Optional[Dict] = None
         self._encoder: Optional[Encoder] = None
-        self._stats_draws = 0
+        self.stats_sampler = state_lib.StatsSampler(0, self.device)
+        self.startup_stats: Optional[Dict] = None
 
         emb0 = (embeddings.float() if torch.is_tensor(embeddings)
                 else torch.from_numpy(np.array(embeddings, np.float32)))
@@ -115,21 +125,87 @@ class HyperbolicTokenizer:
         return n_dev - n_host
 
     def distance_statistics(self, sample_size: int = 1000) -> Dict[str, float]:
-        """min/max/mean/std of sampled pairwise distances (diagnostics)."""
+        """min/max/mean/std of sampled pairwise distances, drawn through
+        ``self.stats_sampler``."""
         st = self.state
-        self._stats_draws += 1
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._stats_draws)
-        n = max(int(st.vocab_size), 2)
-        i = torch.randint(0, n, (sample_size,), generator=gen,
-                          device=self.device)
-        j = torch.randint(0, n - 1, (sample_size,), generator=gen,
-                          device=self.device)
-        j = torch.where(j >= i, j + 1, j)  # uniform over j != i
-        d = L.distance(st.emb[i], st.emb[j], st.curvature)
-        out = torch.stack([d.min(), d.max(), d.mean(),
-                           d.std(unbiased=False)]).tolist()
+        out = state_lib.distance_statistics(
+            st.emb, st.vocab_size, st.curvature, self.stats_sampler,
+            sample_size).tolist()
         return {"min": out[0], "max": out[1], "mean": out[2], "std": out[3]}
+
+    def _set_threshold(self, value: float) -> None:
+        self.state = dataclasses.replace(
+            self.state, threshold=torch.tensor(value, dtype=torch.float32,
+                                               device=self.device))
+        self.merge_threshold = float(value)
+
+    def _startup_threshold_adjust(self) -> Dict[str, float]:
+        """The startup controller: degenerate geometry drops the threshold
+        to 1e-5; a threshold above the sampled max is pulled down to 1.5x
+        the sampled mean."""
+        stats = self.distance_statistics()
+        logger.info("Initial distance statistics: min=%.6f max=%.6f "
+                    "mean=%.6f std=%.6f", stats["min"], stats["max"],
+                    stats["mean"], stats["std"])
+        thr = float(self.state.threshold)
+        if stats["max"] < 1e-6:
+            logger.warning("Maximum distance is near zero; setting the "
+                           "merge threshold to 1e-05")
+            self._set_threshold(1e-5)
+        elif thr > stats["max"]:
+            new = min(thr, stats["mean"] * 1.5)
+            if new != thr:
+                logger.info("Adjusted initial merge threshold to %.6f", new)
+                self._set_threshold(new)
+        return stats
+
+    def optimize_merges(self, steps: int = 10_000, log_every: int = 1000,
+                        **_compat) -> None:
+        """Run the distance-only merge loop in chunks of ``log_every``
+        steps, one ``training_stats`` entry per chunk, until ``steps`` or a
+        stop. Extra keyword arguments are accepted for the reference's API;
+        ``adaptive_threshold`` switches the adaptation."""
+        if "adaptive_threshold" in _compat:
+            self.config = dataclasses.replace(
+                self.config,
+                adaptive_threshold=bool(_compat["adaptive_threshold"]))
+        # Once per tokenizer: a caller may chunk optimize_merges, and a
+        # second run would undo the loop's threshold growth.
+        if self.config.adaptive_threshold and \
+                not getattr(self, "_threshold_adjusted", False):
+            self._threshold_adjusted = True
+            before = float(self.state.threshold)
+            self.startup_stats = dict(
+                self._startup_threshold_adjust(), threshold_before=before,
+                threshold_after=float(self.state.threshold))
+        done = 0
+        while done < steps:
+            chunk = min(log_every, steps - done)
+            t0 = time.perf_counter()
+            self.state = state_lib.run_merges(self.state, self.config, chunk)
+            self._sync_merges_from_device()
+            dt = time.perf_counter() - t0
+            done += chunk
+            dstats = self.distance_statistics()
+            stat = {
+                "step": int(self.state.step),
+                "vocab_size": len(self.vocab),
+                "merges": len(self.merge_history),
+                "threshold": float(self.state.threshold),
+                "steps_per_sec": chunk / dt if dt > 0 else float("inf"),
+                "min_dist": dstats["min"],
+                "max_dist": dstats["max"],
+                "mean_dist": dstats["mean"],
+                "std_dist": dstats["std"],
+            }
+            self.training_stats.append(stat)
+            logger.info("step %(step)d: vocab=%(vocab_size)d "
+                        "merges=%(merges)d threshold=%(threshold).6f "
+                        "%(steps_per_sec).1f steps/s", stat)
+            if bool(self.state.stopped):
+                logger.info("No more merge candidates found. Stopping.")
+                break
+        self.merge_threshold = float(self.state.threshold)
 
     # -------------------------------------------------------------- inference
     def _get_encoder(self) -> Encoder:
@@ -249,3 +325,7 @@ class HyperbolicTokenizer:
         )
         tok._restore_loaded_state(vocab, emb, merges)
         return tok
+
+
+# The reference's "fast" class is the same loop here.
+FastHyperbolicTokenizer = HyperbolicTokenizer

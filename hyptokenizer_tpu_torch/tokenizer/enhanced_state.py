@@ -31,7 +31,7 @@ import torch
 from hyptokenizer_tpu_torch.ops import lorentz as L
 from hyptokenizer_tpu_torch.tokenizer import scoring
 from hyptokenizer_tpu_torch.tokenizer.state import (
-    THRESHOLD_CAP, MergeConfig, MergeState, insert_batch,
+    THRESHOLD_CAP, MergeConfig, MergeState, StatsSampler, insert_batch,
 )
 
 INF = float("inf")
@@ -154,18 +154,10 @@ def clone_state(st: EnhancedState) -> EnhancedState:
            for f in dataclasses.fields(EnhancedState) if f.name != "base"})
 
 
-class TorchSampler:
+class TorchSampler(StatsSampler):
     """The default source of the loop's random draws: a seeded
-    ``torch.Generator`` on the training device."""
-
-    def __init__(self, seed: int, device):
-        self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
-
-    def _randint(self, shape, high: int) -> torch.Tensor:
-        return torch.randint(0, high, shape, generator=self.generator,
-                             device=self.device, dtype=torch.int32)
+    ``torch.Generator`` on the training device (the generator of
+    :class:`state.StatsSampler`)."""
 
     def coherence(self, n: int, high: int) -> torch.Tensor:
         """(n,) token ids in [0, high) for one sync's coherence samples."""

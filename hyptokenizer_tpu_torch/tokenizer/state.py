@@ -1,14 +1,18 @@
-"""The merge state: a dataclass of tensors.
+"""The merge state and the distance-only merge loop.
 
-Port of ``hyptokenizer_tpu/tokenizer/state.py`` for the enhanced loop.
-``init_state`` builds the dense-candidate arrays ``best_dist``/``best_j``
-with ``pairwise_min_best`` (kernel K3 on the card, its plain version on the
-CPU), or, with ``init_candidates=False``, POISONS them (-inf / -1):
-corpus-only training never reads them, and ``run_enhanced`` refuses to
-start a dense configuration on them. :func:`insert_batch` is the plain
-version of ``merge_batch``'s inserts and of its column fold. The
-distance-only loop (``merge_pair``, ``merge_step``, ``run_merges``) comes
-with a later slice.
+Port of ``hyptokenizer_tpu/tokenizer/state.py``. ``init_state`` builds the
+dense-candidate arrays ``best_dist``/``best_j`` with ``pairwise_min_best``
+(kernel K3 on the card, its plain version on the CPU), or, with
+``init_candidates=False``, POISONS them (-inf / -1): corpus-only training
+never reads them, and ``run_enhanced`` refuses to start a dense
+configuration on them. :func:`insert_batch` is the plain version of
+``merge_batch``'s inserts and of its column fold.
+
+The distance-only loop: :func:`merge_step` merges the global argmin of
+``best_dist`` (:func:`merge_pair`) or runs the adaptive-threshold escape
+(:func:`_no_candidate`); :func:`run_merges_plain` loops it, and is the
+plain version of kernel K4; :func:`run_merges` launches K4 for a state on
+the card and runs the plain version for a state on the CPU.
 
 Scalars are 0-d tensors on the state's device, float32 or int32 as in the
 JAX package, so that float32 arithmetic on them (thresholds, curvature)
@@ -25,6 +29,7 @@ from hyptokenizer_tpu_torch import _device
 from hyptokenizer_tpu_torch.ops import lorentz as L
 
 THRESHOLD_CAP = 1e6
+INF = float("inf")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,3 +185,148 @@ def _fold_columns(state: MergeState, ii: torch.Tensor, jj: torch.Tensor,
                                            state.best_dist[:v_post])
     state.best_j[:v_post] = torch.where(improved, col_arg,
                                         state.best_j[:v_post])
+
+
+class StatsSampler:
+    """The draws of :func:`distance_statistics`, from a seeded
+    ``torch.Generator`` on the state's device. A test hands the port the
+    JAX package's draws instead (``tests/torch_port_common.ReplaySampler``).
+    """
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def _randint(self, shape, high: int) -> torch.Tensor:
+        return torch.randint(0, high, shape, generator=self.generator,
+                             device=self.device, dtype=torch.int32)
+
+    def stats(self, sample_size: int, n: int):
+        """``(i, j)``: (sample_size,) ids in [0, n) and in [0, n - 1)."""
+        return (self._randint((sample_size,), n),
+                self._randint((sample_size,), n - 1))
+
+
+def distance_statistics(emb: torch.Tensor, vocab_size, curvature,
+                        sampler, sample_size: int = 1000) -> torch.Tensor:
+    """min/max/mean/std of ``sample_size`` sampled pairwise distances, as a
+    (4,) float32 tensor: pairs (i, j != i) drawn with replacement."""
+    n = max(int(vocab_size), 2)
+    i, j = sampler.stats(sample_size, n)
+    i = i.to(emb.device).long()
+    j = j.to(emb.device).long()
+    j = torch.where(j >= i, j + 1, j)  # uniform over j != i
+    d = L.distance(emb[i], emb[j], curvature)
+    return torch.stack([d.min(), d.max(), d.mean(), d.std(unbiased=False)])
+
+
+def _do_merge(state: MergeState, config: MergeConfig) -> MergeState:
+    """Apply the current best merge (the argmin of ``best_dist``, lowest
+    index on ties) and update the candidates."""
+    i = torch.argmin(state.best_dist)
+    return merge_pair(state, i, state.best_j[i], state.best_dist[i],
+                      config.max_token_len)
+
+
+def merge_pair(state: MergeState, i, j, d,
+               max_token_len: int = 0) -> MergeState:
+    """Merge the pair (i, j) at distance ``d`` into row ``vocab_size`` and
+    update the candidates, in place.
+
+    Candidate maintenance is ONE column fold, as in the JAX package
+    (``state.merge_pair``, whose docstring proves its structural-exclusion
+    invariant): row i is invalidated iff its tracked best was the consumed
+    pair (``best_j[i] == j``), then every row r < new_idx that passes the
+    length gate takes the new column iff it is strictly closer than its
+    best. ``best_j`` therefore always points at an unconsumed column, and a
+    consumed pair is never selected again.
+    """
+    new_idx = int(state.vocab_size)
+    nm = int(state.num_merges)
+    c = state.curvature
+    midpoint_insert(state.emb, state.lengths, i, j, new_idx, c)
+    state.merges[nm, 0] = i
+    state.merges[nm, 1] = j
+    state.merge_dists[nm] = d
+    max_v = state.emb.shape[0]
+    dev = state.emb.device
+    d_new = L.pairwise_dist(state.emb, state.emb[new_idx:new_idx + 1],
+                            c)[:, 0]
+    ok = torch.arange(max_v, device=dev) < new_idx
+    if max_token_len > 0:
+        # Structural length gate (MergeConfig.max_token_len).
+        ok &= state.lengths + state.lengths[new_idx] <= max_token_len
+    d_new = torch.where(ok, d_new, INF)
+    tracked = state.best_j[i] == j
+    state.best_dist[i] = torch.where(tracked, INF, state.best_dist[i])
+    improved = d_new < state.best_dist
+    state.best_dist.copy_(torch.where(improved, d_new, state.best_dist))
+    state.best_j.copy_(torch.where(improved, new_idx, state.best_j))
+    return dataclasses.replace(
+        state, vocab_size=state.vocab_size + 1,
+        num_merges=state.num_merges + 1,
+        empty_rounds=torch.zeros_like(state.empty_rounds))
+
+
+def _no_candidate(state: MergeState, config: MergeConfig) -> MergeState:
+    """The adaptive-threshold escape: x``empty_growth`` after
+    ``empty_growth_after`` empty rounds, or, without adaptation, a stop
+    after ``empty_stop_after``."""
+    empty = state.empty_rounds + 1
+    if config.adaptive_threshold:
+        grow = empty >= config.empty_growth_after
+        threshold = torch.clamp_max(
+            torch.where(grow, state.threshold * config.empty_growth,
+                        state.threshold), THRESHOLD_CAP)
+        empty = torch.where(grow, torch.zeros_like(empty), empty)
+        return dataclasses.replace(state, threshold=threshold,
+                                   empty_rounds=empty)
+    return dataclasses.replace(state, empty_rounds=empty,
+                               stopped=empty >= config.empty_stop_after)
+
+
+def merge_step(state: MergeState, config: MergeConfig) -> MergeState:
+    """One step: merge the best candidate, or adapt the threshold; then the
+    periodic threshold growth and the capacity stop."""
+    best = torch.min(state.best_dist)
+    has = bool((best < state.threshold)
+               & (state.vocab_size < config.max_vocab_size))
+    state = _do_merge(state, config) if has else _no_candidate(state, config)
+    step = state.step + 1
+    threshold = state.threshold
+    if config.adaptive_threshold and config.threshold_growth_every > 0:
+        grow = (step % config.threshold_growth_every) == 0
+        threshold = torch.clamp_max(
+            torch.where(grow, threshold * config.threshold_growth,
+                        threshold), THRESHOLD_CAP)
+    full = state.vocab_size >= config.max_vocab_size
+    return dataclasses.replace(state, step=step, threshold=threshold,
+                               stopped=state.stopped | full)
+
+
+def config_capacity(state: MergeState) -> torch.Tensor:
+    """Remaining vocab slots."""
+    return state.emb.shape[0] - state.vocab_size
+
+
+def run_merges_plain(state: MergeState, config: MergeConfig,
+                     n_steps: int) -> MergeState:
+    """Up to ``n_steps`` merge steps, stopping at ``stopped``: the port of
+    the JAX package's ``_run_merges_xla`` and the plain version of kernel
+    K4. Updates the buffers in place."""
+    start = int(state.step)
+    while not bool(state.stopped) and int(state.step) - start < n_steps:
+        state = merge_step(state, config)
+    return state
+
+
+def run_merges(state: MergeState, config: MergeConfig,
+               n_steps: int) -> MergeState:
+    """Up to ``n_steps`` merge steps on the state's own device: kernel K4
+    (one launch) for a state on the card, :func:`run_merges_plain` for a
+    state on the CPU."""
+    if state.emb.device.type == "cpu":
+        return run_merges_plain(state, config, n_steps)
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop
+    return merge_loop.run_merges_chunk(state, config, n_steps)

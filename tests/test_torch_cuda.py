@@ -12,7 +12,11 @@ chunk as the JAX package holds its kernel, and step by step with the fold
 and the rows compared too: its grams and scores are summed in another
 order, and a near-tie may reorder a batch. Kernel K3 (ops/cuda/csrc/pairwise.cu) is held to
 ``search.full_pass_best``: distances within 1e-5, partners equal except at
-ties within 1e-5.
+ties within 1e-5. Kernel K4 (ops/cuda/csrc/merge_loop.cu) is held to
+``state.run_merges_plain`` chunk by chunk at d=8
+(``selfcheck._check_base_kernel``) and step by step at d=100 and wider
+(``selfcheck._lockstep_base_steps``). K1/K2 also run ``merge_batch`` 64,
+and K2/K3 wide states (d+1 = 129, 301 and more).
 """
 
 import dataclasses
@@ -25,9 +29,12 @@ from hyptokenizer_tpu_torch.evals import selfcheck
 from hyptokenizer_tpu_torch.ops import lorentz as L
 from hyptokenizer_tpu_torch.ops.cuda import _build
 from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
+from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
 from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
-from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
+from hyptokenizer_tpu_torch.tokenizer import (
+    EnhancedHyperbolicTokenizer, HyperbolicTokenizer)
 from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+from hyptokenizer_tpu_torch.tokenizer import state as S
 from tests.torch_port_checks import assert_same_best
 
 pytestmark = pytest.mark.cuda
@@ -67,13 +74,16 @@ class NumpySampler:
         return (self._draw((hp, hn), high), self._draw((ds,), high),
                 self._draw((ds,), high))
 
+    def stats(self, sample_size, n):
+        return self._draw((sample_size,), n), self._draw((sample_size,), n - 1)
 
-def small_tokenizer(device, **kw):
+
+def small_tokenizer(device, d=8, sigma=0.6, **kw):
     chars = sorted({ch for line in CORPUS for ch in line})
     vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + chars
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
-    emb = L.random_points(gen, len(vocab), 8, sigma=0.6, device="cpu")
+    emb = L.random_points(gen, len(vocab), d, sigma=sigma, device="cpu")
     cfg = dict(corpus_sample=CORPUS, max_vocab_size=256, merge_threshold=5.0,
                corpus_max_tokens=1024, freq_table_size=1024, queue_size=128,
                use_dense_channel=False, use_hierarchical=False,
@@ -105,10 +115,12 @@ def test_kernel_builds(cuda):
     assert _build.load(K1.SOURCE).enhanced_loop_launch is not None
     assert _build.load(K1.SOURCE).enhanced_loop_dense_launch is not None
     assert _build.load(K3.SOURCE).pairwise_min_best_launch is not None
+    assert _build.load(K4.SOURCE).merge_loop_launch is not None
 
 
 @pytest.mark.parametrize("kw", [
     {}, dict(merge_batch=1), dict(merge_batch=32, queue_size=256),
+    dict(merge_batch=64, queue_size=256),
     dict(use_hierarchical=True, use_compression_aware=True),
     dict(max_vocab_size=60)])
 def test_segment_matches_plain(cuda, kw):
@@ -144,7 +156,7 @@ def test_training_matches_cpu(cuda):
 
 
 def test_wrapper_checks_inputs(cuda):
-    tok = small_tokenizer(cuda, merge_batch=33)
+    tok = small_tokenizer(cuda, merge_batch=K1.MAX_BATCH + 1)
     with pytest.raises(ValueError, match="merge_batch"):
         K1.run_segment_cuda(tok.enh_state, tok.enh_config, 10, 10, 10)
 
@@ -152,7 +164,7 @@ def test_wrapper_checks_inputs(cuda):
 # Sizes that cross the 64-row tile edges and the diagonal tile.
 @pytest.mark.parametrize("max_v,vocab,d1", [
     (64, 1, 8), (64, 63, 8), (130, 64, 8), (130, 65, 101), (300, 257, 101),
-    (520, 520, 128)])
+    (520, 520, 128), (300, 257, 129), (520, 300, 301)])
 def test_k3_matches_plain(cuda, max_v, vocab, d1):
     gen = torch.Generator(device="cpu")
     gen.manual_seed(max_v + vocab)
@@ -178,9 +190,13 @@ def dense_tokenizer(device, **kw):
                alpha=0.4, beta=0.4, gamma=0.2, optimize_curvature_freq=7,
                merge_batch=3, merge_threshold=0.4, merge_policy="fixpoint")
     cfg.update(kw)
+    samples = cfg.pop("coherence_samples", None)
     tok = small_tokenizer(device, **cfg)
     tok.enh_config = dataclasses.replace(tok.enh_config, phase2_step=6,
                                          phase3_step=14)
+    if samples is not None:    # the next sync draws this many
+        tok.enh_config = dataclasses.replace(tok.enh_config,
+                                             coherence_samples=samples)
     return tok
 
 
@@ -189,8 +205,16 @@ K2_CASES = [
     dict(corpus_sample=None, use_frequency_aware=False,
          use_hierarchical=False, use_compression_aware=False,
          use_adaptive_curvature=False, merge_batch=2,
-         merge_threshold=5.0)]
-K2_IDS = ["all-features", "batch16", "batch31", "length-gate", "dense-only"]
+         merge_threshold=5.0),
+    dict(merge_batch=32), dict(merge_batch=64), dict(d=128), dict(d=300),
+    dict(coherence_samples=600),
+    # Points close enough for dense candidates under the threshold, so the
+    # coherence midpoint is staged in slabs; the fold's new rows outgrow
+    # the staging buffer and are staged in slabs too.
+    dict(d=300, sigma=0.003, merge_batch=64), dict(d=1100, sigma=0.0015)]
+K2_IDS = ["all-features", "batch16", "batch31", "length-gate", "dense-only",
+          "batch32", "batch64", "d1-129", "d1-301", "samples600",
+          "d1-301-close-batch64", "d1-1101-close"]
 
 
 @pytest.mark.parametrize("kw", K2_CASES, ids=K2_IDS)
@@ -235,3 +259,129 @@ def test_k2_training_on_the_card(cuda):
     assert tok.current_phase == 3
     v = int(tok.state.vocab_size)
     assert bool(torch.isfinite(tok.state.emb[:v]).all())
+
+
+# Kernel K4: the distance-only loop.
+
+K4_CHUNK_CASES = {
+    "adaptive": dict(n0=64, max_v=256, threshold=2.5),
+    "unaligned": dict(n0=40, max_v=200, threshold=50.0),
+    "non-adaptive": dict(n0=64, max_v=256, threshold=1e-6,
+                         adaptive_threshold=False),
+    "empty-growth": dict(n0=64, max_v=256, threshold=1e-6),
+    "capacity": dict(n0=40, max_v=128, threshold=50.0),
+    "length-gate": dict(n0=64, max_v=256, threshold=5.0, max_token_len=5,
+                        lengths=torch.arange(64, dtype=torch.int32) % 3 + 1),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_CHUNK_CASES))
+def test_k4_chunk_lockstep_with_plain(cuda, case):
+    """K4 against ``run_merges_plain`` at d=8 by the JAX package's chunk
+    protocol (``selfcheck._check_base_kernel``), on the card."""
+    st, cfg = selfcheck.base_state(cuda, d=7, **K4_CHUNK_CASES[case])
+    out = {}
+    K4.reset_launches()
+    selfcheck._check_base_kernel(out, st, cfg, n_chunks=8, chunk=20)
+    assert out["kernel_selfcheck"] == "pass", out
+    assert K4.launches > 0
+    if case in ("unaligned", "capacity"):
+        assert out["kernel_selfcheck_merges"] == cfg.max_vocab_size - \
+            int(st.vocab_size)
+    elif case in ("non-adaptive", "empty-growth"):
+        assert out["kernel_selfcheck_merges"] == 0
+    else:
+        assert out["kernel_selfcheck_merges"] >= 40
+
+
+@pytest.mark.parametrize("d1", [101, 129, 301, 10_001])
+def test_k4_step_lockstep_with_plain(cuda, d1):
+    """K4 against ``run_merges_plain`` one launch of one step at a time, at
+    the flagship's d=100 and wider states (d+1 = 10,001 keeps the new row
+    in global memory, past the kernel's shared-memory row): scalars,
+    merged pair, new row, merge distance and the fold."""
+    sigma = 0.5 if d1 < 1000 else 0.02     # points within float32 range
+    st, cfg = selfcheck.base_state(cuda, n0=512, d=d1 - 1, max_v=1024,
+                                   threshold=50.0, sigma=sigma)
+    out = {}
+    K4.reset_launches()
+    selfcheck._lockstep_base_steps(st, cfg, 60, out, "k4")
+    assert out["k4"] == "pass", out
+    assert out["k4_steps"] == 60 and K4.launches == 60
+    assert out["k4_merges"] == 60
+
+
+def test_k4_loop_scalars_match_plain(cuda):
+    """Non-adaptive stop, empty-round growth and the periodic growth, over
+    one launch each: the loop scalars equal the plain version's."""
+    for kw in (dict(threshold=1e-6, adaptive_threshold=False),
+               dict(threshold=1e-6), dict(threshold=0.9,
+                                          threshold_growth_every=7)):
+        st, cfg = selfcheck.base_state(cuda, n0=64, d=7, max_v=256, **kw)
+        sk = S.run_merges(selfcheck.clone_merge_state(st), cfg, 50)
+        sp = S.run_merges_plain(selfcheck.clone_merge_state(st), cfg, 50)
+        for f in selfcheck.BASE_SCALARS:
+            assert getattr(sk, f).item() == getattr(sp, f).item(), (kw, f)
+
+
+def test_k4_training_on_the_card(cuda):
+    """The distance-only tokenizer trains on the card through K3 (in the
+    constructor) and K4, and its merges equal the CPU's above the acosh
+    clamp floor; it trains on after save/load."""
+    import tempfile
+
+    vocab = [chr(0x41 + k) for k in range(48)]
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    emb = L.random_points(gen, len(vocab), 8, sigma=0.6, device="cpu")
+    toks = []
+    launches = []
+    for dev in (cuda, "cpu"):
+        K3.reset_launches()
+        tok = HyperbolicTokenizer(vocab, emb, merge_threshold=5.0,
+                                  max_vocab_size=256, device=dev)
+        tok.stats_sampler = NumpySampler(0, dev)
+        K4.reset_launches()
+        tok.optimize_merges(80, log_every=20)
+        toks.append(tok)
+        launches.append((K3.launches, K4.launches))
+    tc, th = toks
+    assert launches == [(1, 4), (0, 0)]   # the CPU runs the plain versions
+    dists = th.state.merge_dists[:len(th.merge_history)]
+    n = next((k for k, x in enumerate(dists.tolist()) if x <= 1e-3),
+             len(th.merge_history))
+    assert n >= 5
+    assert tc.merge_history[:n] == th.merge_history[:n]
+    assert [s["step"] for s in tc.training_stats] == \
+        [s["step"] for s in th.training_stats]
+    with tempfile.TemporaryDirectory() as d:
+        tc.save(d)
+        back = HyperbolicTokenizer.load(d, device=cuda)
+    assert back.encode("ABCABD") == tc.encode("ABCABD")
+    K4.reset_launches()
+    back.optimize_merges(20, log_every=20)
+    assert K4.launches == 1
+    v = int(back.state.vocab_size)
+    assert v == len(back.vocab)
+    assert bool(torch.isfinite(back.state.emb[:v]).all())
+
+
+def test_grams_stay_fp32_after_high_precision(cuda):
+    """``torch.set_float32_matmul_precision("high")`` turns TF32 on for
+    cuBLAS; the port's grams still run in full float32 and leave the
+    setting as they found it."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    x = L.random_points(gen, 256, 100, sigma=0.5, device="cpu")
+    ref = L.pairwise_minkowski_dot(x.double(), x.double())
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        g = L.pairwise_minkowski_dot(x.to(cuda), x.to(cuda)).double().cpu()
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    bound = selfcheck.gram_error_bound(
+        x.double(), torch.arange(256)[:, None], torch.arange(256)[None, :],
+        101) / 2
+    assert bool(((g - ref).abs() <= bound).all())

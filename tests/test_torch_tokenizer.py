@@ -188,7 +188,11 @@ def test_import_leaves_jax_out():
         "import hyptokenizer_tpu_torch.tokenizer\n"
         "import hyptokenizer_tpu_torch.ops.cuda.enhanced_loop\n"
         "import hyptokenizer_tpu_torch.ops.cuda.pairwise\n"
+        "import hyptokenizer_tpu_torch.ops.cuda.merge_loop\n"
+        "import hyptokenizer_tpu_torch.ops.cuda._build\n"
         "import hyptokenizer_tpu_torch.tokenizer.search\n"
+        "import hyptokenizer_tpu_torch.tokenizer.state\n"
+        "import hyptokenizer_tpu_torch.tokenizer.core\n"
         "import hyptokenizer_tpu_torch.evals.selfcheck\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'hyptokenizer_tpu.')) or m == 'hyptokenizer_tpu']\n"

@@ -56,11 +56,21 @@ def make_pair(**overrides):
 class ReplaySampler:
     """Hands the port the draws the JAX package makes from ``key``: the
     same splits, in the same order (enhanced_state.py:442, :386-415 and
-    :718-720)."""
+    :718-720). The distance statistics' draws (:meth:`stats`) follow the
+    tokenizer's own chain instead: ``PRNGKey(k)`` for its k-th call, split
+    in two, one ``randint`` each (core.py:149-158, state.py:196-214)."""
 
-    def __init__(self, key):
+    def __init__(self, key=None):
         # A copy: the JAX loop donates its state, key included.
-        self.key = jnp.array(np.asarray(key))
+        self.key = None if key is None else jnp.array(np.asarray(key))
+        self.stats_key = 0
+
+    def stats(self, sample_size, n):
+        self.stats_key += 1
+        k1, k2 = jax.random.split(jax.random.PRNGKey(self.stats_key))
+        return tuple(torch.from_numpy(np.array(x)) for x in (
+            jax.random.randint(k1, (sample_size,), 0, jnp.int32(n)),
+            jax.random.randint(k2, (sample_size,), 0, jnp.int32(n - 1))))
 
     def coherence(self, n, high):
         self.key, sub = jax.random.split(self.key)
