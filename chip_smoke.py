@@ -44,7 +44,15 @@ Phases:
    bound), and by the JAX package's chunk protocol at its own size
    (``evals/selfcheck._check_base_kernel``, verdict recorded, see
    ``PERF.md``);
-4. a ``kernels`` JSON line, the card line, and the last line
+4. the depth phases, each kernel against its plain version by the step
+   lockstep and timed with CUDA events: K4 from ``K4_DEPTH_N0`` active rows
+   in 50,176 slots (a 4096-step chunk, its step floor with no step
+   merging, also at the distance-only path's own timing chunk, and
+   ``K4_DEPTH_LOCKSTEP`` lockstep steps); K2 from the all-features state
+   padded to ``K2_DEPTH_ROWS`` active rows
+   (``evals/selfcheck.pad_dense_state``; one segment timed, one held in
+   lockstep);
+5. a ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 
 Exits nonzero, printing no result, without a CUDA device, without the
@@ -84,6 +92,12 @@ DIST_WARM = 256
 DIST_CHUNK = 4096
 DIST_CHUNKS = 6
 K4_LOCKSTEP_STEPS = 400
+# The depth phases: K4 from 45,056 active rows in 50,176 slots (a
+# 4096-step chunk fits before capacity), K2 from the all-features state
+# padded to 49,152 active rows.
+K4_DEPTH_N0 = 45_056
+K4_DEPTH_LOCKSTEP = 200
+K2_DEPTH_ROWS = 49_152
 # The structural length gate (MergeConfig.max_token_len) at the enhanced
 # tokenizer's default. Without it the distance-only loop at these shapes
 # chains merges of a token with its own midpoints, whose strings grow
@@ -356,13 +370,11 @@ def check_k2(tok, start):
     ms = start_ev.elapsed_time(end_ev) / reps
 
     d1 = st0.base.emb.shape[1]
-    fold_rows = sum(v for v, _ in per_step)
-    nbytes = K12.segment_bytes(st0, cfg, n, fold_rows)
+    v0 = sc["vocab_size"]
     steps = len(per_step)
-    # K1's queue work, plus per step the argmin (a compare per row) and the
-    # fold (a d1-long dot per row and new column).
-    ops = (steps * cfg.queue_size * 2 + n * (3 * cfg.queue_size + 12 * d1)
-           + sum(v * (1 + 2 * d1 * m) for v, m in per_step))
+    nbytes = K12.segment_bytes(st0, cfg, n, dense_rows=v0)
+    fold_rows = sum(v for v, _ in per_step)
+    ops = K12.segment_ops(cfg, d1, n, steps, dense_rows=v0)
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FP32_FLOPS * 1e3
     return dict(
@@ -373,12 +385,84 @@ def check_k2(tok, start):
         plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, segment_merges=n, segment_steps=steps,
-        segment_bytes=nbytes, lockstep=out["k2"],
+        us_per_step=ms * 1e3 / steps, segment_rows=v0,
+        segment_bytes=nbytes, segment_ops=ops,
+        bytes_rereading=K12.segment_bytes_rereading(st0, cfg, n, fold_rows),
+        grid=K12.dense_grid_size(st0.base.emb.device, cfg),
+        lockstep=out["k2"],
         lockstep_merges=out["k2_merges"], lockstep_steps=out["k2_steps"],
         reorders=out["k2_reorders"], dist_ties=out["k2_dist_ties"],
         partner_ties=out["k2_partner_ties"],
         row_err_over_tol=out["k2_row_err_over_tol"],
         gram_gap_over_bound=out["k2_gram_gap_over_bound"])
+
+
+def time_segment(st0, cfg, budgets):
+    """One K2 segment from ``st0`` timed with CUDA events, after a warm-up
+    segment on a clone. Returns (ms, the kernel's end state)."""
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    warm, run = E.clone_state(st0), E.clone_state(st0)
+    K12.run_segment_cuda(warm, cfg, *budgets)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sk = K12.run_segment_cuda(run, cfg, *budgets)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), sk
+
+
+def check_k2_depth(tok):
+    """Kernel K2 at a deep vocabulary: the all-features state after the
+    smoke's chunks, its active prefix padded to ``K2_DEPTH_ROWS`` rows
+    (``evals/selfcheck.pad_dense_state``); one segment timed, and one
+    segment held to the plain version step by step."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    cfg = tok.enh_config
+    deep = selfcheck.pad_dense_state(tok.enh_state, K2_DEPTH_ROWS)
+    st0 = E.sync_corpus(E.clone_state(deep), cfg, E.TorchSampler(1, "cuda"))
+    sc = E.state_scalars(st0)
+    freq = cfg.curvature_freq
+    budgets = (sc["num_merges"] + LOG_EVERY,
+               sc["step"] + LOG_EVERY + 1024,
+               (sc["curv_last"] // freq + 1) * freq)
+    ms, sk = time_segment(st0, cfg, budgets)
+    ek = E.state_scalars(sk)
+    n = ek["num_merges"] - sc["num_merges"]
+    steps = ek["step"] - sc["step"]
+    if n <= 0 or steps <= 0:
+        fail(f"the deep K2 segment ran {steps} steps and {n} merges")
+    v0 = sc["vocab_size"]
+    d1 = st0.base.emb.shape[1]
+    out = {}
+    holder = types.SimpleNamespace(enh_state=deep, enh_config=cfg)
+    selfcheck._lockstep_steps(holder, 1, out, "k2d", row_atol=ROW_ATOL)
+    if out["k2d"] != "pass":
+        fail(f"K2 lockstep at {v0} rows against its plain version: "
+             f"{out['k2d']}")
+    nbytes = K12.segment_bytes(st0, cfg, n, dense_rows=v0)
+    ops = K12.segment_ops(cfg, d1, n, steps, dense_rows=v0)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return dict(
+        rows=v0, ms=ms, segment_merges=n, segment_steps=steps,
+        us_per_step=ms * 1e3 / steps, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        segment_bytes=nbytes, segment_ops=ops,
+        rows_end=v0 + n,
+        lockstep=out["k2d"], lockstep_merges=out["k2d_merges"],
+        lockstep_steps=out["k2d_steps"], reorders=out["k2d_reorders"],
+        dist_ties=out["k2d_dist_ties"],
+        partner_ties=out["k2d_partner_ties"],
+        max_abs_err=out["k2d_row_err"],
+        row_err_over_tol=out["k2d_row_err_over_tol"],
+        gram_gap_over_bound=out["k2d_gram_gap_over_bound"])
 
 
 def check_k3(ctor_vocab: int):
@@ -525,10 +609,7 @@ def check_k1(tok):
     d1 = st0.base.emb.shape[1]
     nbytes = K1.segment_bytes(st0, cfg, n)
     steps = a["step"] - sc["step"]
-    # Per step: a compare per queue entry of the phase (scan) and, per
-    # merge, a compare per entry of the three queues (consumption); per
-    # merge ~12 flops per coordinate (dot, midpoint, projection).
-    ops = steps * cfg.queue_size * 2 + n * (3 * cfg.queue_size + 12 * d1)
+    ops = K1.segment_ops(cfg, d1, n, steps)
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FP32_FLOPS * 1e3
     return dict(
@@ -539,7 +620,7 @@ def check_k1(tok):
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, segment_merges=n, segment_steps=steps,
-        segment_bytes=nbytes, sync_ms=sync_ms)
+        us_per_step=ms * 1e3 / steps, segment_bytes=nbytes, sync_ms=sync_ms)
 
 
 def main_path_distance(lines, device="cuda"):
@@ -656,27 +737,20 @@ def check_k4(trained, cfg):
 
     max_v, d1 = trained.emb.shape
     v0, nm0 = int(trained.vocab_size), int(trained.num_merges)
-    clones = [selfcheck.clone_merge_state(trained) for _ in range(3)]
-    S.run_merges(clones.pop(), cfg, DIST_CHUNK)              # warm-up
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    sk = K4.run_merges_chunk(clones.pop(), cfg, DIST_CHUNK)
-    b.record()
-    torch.cuda.synchronize()
-    ms = a.elapsed_time(b)
+    ms, sk = time_chunk(trained, cfg, DIST_CHUNK)
     t0 = time.perf_counter()
-    sp = S.run_merges_plain(clones.pop(), cfg, DIST_CHUNK)
+    sp = S.run_merges_plain(selfcheck.clone_merge_state(trained), cfg,
+                            DIST_CHUNK)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     m = int(sk.num_merges) - nm0
     steps = int(sk.step) - int(trained.step)
     if steps != DIST_CHUNK or m <= 0:
         fail(f"the K4 timing chunk ran {steps} steps and {m} merges")
-    nbytes = K4.chunk_bytes(v0, m, steps, d1, max_v, cfg.max_token_len)
-    # Per merge: the fold's d1-long dot per row (2 d1 FLOP) and its acosh.
-    ops = (m * v0 + m * (m - 1) // 2) * (2 * d1 + 8) + steps * max_v
+    floor_ms = time_floor(trained, cfg)
+    grid = K4.grid_size(trained.emb.device)
+    nbytes = K4.chunk_bytes(v0, m, d1, max_v, cfg.max_token_len)
+    ops = K4.chunk_ops(v0, m, steps, d1)
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FP32_FLOPS * 1e3
     mean_vocab = v0 + m / 2
@@ -688,9 +762,14 @@ def check_k4(trained, cfg):
         plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, chunk_steps=steps, chunk_merges=m,
-        chunk_bytes=nbytes, us_per_step=ms * 1e3 / steps,
+        chunk_bytes=nbytes, chunk_ops=ops,
+        bytes_rereading=K4.chunk_bytes_rereading(v0, m, steps, d1, max_v,
+                                                 cfg.max_token_len),
+        us_per_step=ms * 1e3 / steps,
+        floor_us_per_step=floor_ms * 1e3 / DIST_CHUNK,
         bound_us_per_step=max(bytes_ms, ops_ms) * 1e3 / steps,
-        mean_vocab=mean_vocab, grid=K4.grid_size(trained.emb.device, d1),
+        mean_vocab=mean_vocab, grid=grid,
+        resident_rows=K4.smem_plan(max_v, d1, grid).resident,
         plain_merges=int(sp.num_merges) - nm0,
         lockstep=out["k4"], lockstep_steps=out["k4_steps"],
         lockstep_merges=out["k4_merges"], pair_ties=out["k4_pair_ties"],
@@ -700,6 +779,83 @@ def check_k4(trained, cfg):
         chunk_check=out["kernel_selfcheck"],
         chunk_check_merges=out["kernel_selfcheck_merges"],
         chunk_check_ties=out.get("kernel_selfcheck_ties"))
+
+
+def time_chunk(st, cfg, n_steps):
+    """One K4 chunk of ``n_steps`` steps from ``st`` (left untouched) timed
+    with CUDA events, after a warm-up chunk on a clone. Returns (ms, the
+    kernel's end state)."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+
+    warm = selfcheck.clone_merge_state(st)
+    run = selfcheck.clone_merge_state(st)
+    K4.run_merges_chunk(warm, cfg, n_steps)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sk = K4.run_merges_chunk(run, cfg, n_steps)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), sk
+
+
+def time_floor(st, cfg):
+    """K4's step floor from ``st``: a ``DIST_CHUNK``-step chunk in which no
+    step merges (threshold 0, no adaptation, no empty-round stop), so a
+    step is the argmin, the grid barrier and the loop scalars alone."""
+    cfg0 = dataclasses.replace(cfg, adaptive_threshold=False,
+                               empty_stop_after=1 << 30)
+    st0 = dataclasses.replace(st, threshold=torch.zeros_like(st.threshold))
+    ms, sk = time_chunk(st0, cfg0, DIST_CHUNK)
+    steps = int(sk.step) - int(st.step)
+    if steps != DIST_CHUNK or int(sk.num_merges) != int(st.num_merges):
+        fail(f"the K4 floor chunk ran {steps} steps and merged")
+    return ms
+
+
+def check_k4_depth():
+    """Kernel K4 at the bench's depth: ``K4_DEPTH_N0`` active rows in
+    50,176 slots (``evals/selfcheck.base_state``), one ``DIST_CHUNK``-step
+    chunk timed, its step floor from the same state, and
+    ``K4_DEPTH_LOCKSTEP`` steps held to the plain version step by step."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+
+    st, cfg = selfcheck.base_state("cuda", n0=K4_DEPTH_N0, d=100,
+                                   max_v=50_176, threshold=5.0)
+    max_v, d1 = st.emb.shape
+    ms, sk = time_chunk(st, cfg, DIST_CHUNK)
+    m = int(sk.num_merges)
+    steps = int(sk.step)
+    if steps != DIST_CHUNK or m <= 0:
+        fail(f"the deep K4 chunk ran {steps} steps and {m} merges")
+    floor_ms = time_floor(st, cfg)
+    out = {}
+    selfcheck._lockstep_base_steps(st, cfg, K4_DEPTH_LOCKSTEP, out, "k4d",
+                                   row_atol=ROW_ATOL)
+    if out["k4d"] != "pass" or out["k4d_steps"] != K4_DEPTH_LOCKSTEP:
+        fail(f"K4 lockstep at {K4_DEPTH_N0} rows against its plain "
+             f"version: {out['k4d']} over {out['k4d_steps']} steps")
+    nbytes = K4.chunk_bytes(K4_DEPTH_N0, m, d1, max_v)
+    ops = K4.chunk_ops(K4_DEPTH_N0, m, steps, d1)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return dict(
+        rows=K4_DEPTH_N0, mean_vocab=K4_DEPTH_N0 + m / 2, ms=ms,
+        chunk_steps=steps, chunk_merges=m, us_per_step=ms * 1e3 / steps,
+        floor_ms=floor_ms, floor_us_per_step=floor_ms * 1e3 / DIST_CHUNK,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        chunk_bytes=nbytes, chunk_ops=ops,
+        bytes_rereading=K4.chunk_bytes_rereading(K4_DEPTH_N0, m, steps, d1,
+                                                 max_v),
+        lockstep=out["k4d"], lockstep_steps=out["k4d_steps"],
+        lockstep_merges=out["k4d_merges"], pair_ties=out["k4d_pair_ties"],
+        partner_ties=out["k4d_partner_ties"], max_abs_err=out["k4d_row_err"],
+        row_err_over_tol=out["k4d_row_err_over_tol"],
+        gram_gap_over_bound=out["k4d_gram_gap_over_bound"])
 
 
 def main() -> None:
@@ -779,10 +935,21 @@ def main() -> None:
           f"{k2['gram_gap_over_bound']:.3g}; "
           f"segment of {k2['segment_merges']} merges in "
           f"{k2['segment_steps']} steps: {k2['ms']:.3f} ms on the card "
-          f"({k2['ms'] / max(k2['segment_steps'], 1):.4f} ms per step), "
+          f"({k2['us_per_step']:.3f} us per step), "
           f"plain {k2['plain_ms']:.1f} ms, bound {k2['bound_ms']:.6f} ms "
           f"({k2['bound_by']}), max_abs_err {k2['max_abs_err']}",
           flush=True)
+    k2["depth"] = k2d = check_k2_depth(tok)
+    print(f"K2 at depth: segment of {k2d['segment_merges']} merges in "
+          f"{k2d['segment_steps']} steps from {k2d['rows']} rows: "
+          f"{k2d['ms']:.3f} ms ({k2d['us_per_step']:.3f} us per step), "
+          f"bound {k2d['bound_ms']:.6f} ms ({k2d['bound_by']}); lockstep "
+          f"{k2d['lockstep']} over {k2d['lockstep_merges']} merges in "
+          f"{k2d['lockstep_steps']} steps, reorders {k2d['reorders']} "
+          f"dist_ties {k2d['dist_ties']} partner_ties "
+          f"{k2d['partner_ties']} row_err_over_tol "
+          f"{k2d['row_err_over_tol']:.3g} gram_gap_over_bound "
+          f"{k2d['gram_gap_over_bound']:.3g}", flush=True)
     k3 = check_k3(int(start.base.vocab_size))
     k3["launches"] = alls["launches"]["pairwise_min_best"]
     print(f"K3 at {k3['rows']} active rows: {k3['ms']:.3f} ms on the card, "
@@ -824,7 +991,21 @@ def main() -> None:
           f"card ({k4['us_per_step']:.3f} us per step, grid {k4['grid']}), "
           f"plain {k4['plain_ms']:.1f} ms, bound {k4['bound_ms']:.4f} ms "
           f"({k4['bound_us_per_step']:.3f} us per step, {k4['bound_by']}), "
-          f"max_abs_err {k4['max_abs_err']}", flush=True)
+          f"max_abs_err {k4['max_abs_err']}; step floor "
+          f"{k4['floor_us_per_step']:.3f} us", flush=True)
+    del tok, trained
+    k4["depth"] = k4d = check_k4_depth()
+    print(f"K4 at depth: {k4d['chunk_steps']}-step chunk of "
+          f"{k4d['chunk_merges']} merges from {k4d['rows']} rows (mean "
+          f"vocab {k4d['mean_vocab']:.0f}): {k4d['ms']:.3f} ms "
+          f"({k4d['us_per_step']:.3f} us per step), step floor "
+          f"{k4d['floor_us_per_step']:.3f} us, bound {k4d['bound_ms']:.4f} "
+          f"ms ({k4d['bound_by']}); lockstep {k4d['lockstep']} over "
+          f"{k4d['lockstep_merges']} merges in {k4d['lockstep_steps']} "
+          f"steps, pair_ties {k4d['pair_ties']} partner_ties "
+          f"{k4d['partner_ties']} row_err_over_tol "
+          f"{k4d['row_err_over_tol']:.3g} gram_gap_over_bound "
+          f"{k4d['gram_gap_over_bound']:.3g}", flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card_line(), flush=True)

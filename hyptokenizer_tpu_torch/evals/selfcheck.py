@@ -552,3 +552,52 @@ def _lockstep_base_steps(st, cfg, n_steps: int, out: Dict, name: str,
     out[f"{name}_row_err_over_tol"] = stats.get("row_err_over_tol", 0.0)
     out[f"{name}_gram_gap_over_bound"] = stats.get("gram_gap_over_bound",
                                                    0.0)
+
+
+def pad_dense_state(st, n_rows: int, seed: int = 11, sigma: float = 0.5):
+    """A copy of the enhanced state ``st`` with its active prefix padded to
+    ``n_rows`` rows, for holding the dense kernel K2 at a deep vocabulary:
+    the new points drawn at ``sigma`` from a generator seeded with
+    ``seed``, on the state's sheet; length and byte length 1, no vowel,
+    token hashes distinct from each other and from the state's, drawn from
+    the same generator; ``best_dist``/``best_j`` over the whole prefix
+    recomputed by kernel K3 (its plain version for a CPU state)."""
+    import torch
+
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+    from hyptokenizer_tpu_torch.tokenizer import scoring
+
+    st = E.clone_state(st)
+    base = st.base
+    v0 = int(base.vocab_size)
+    max_v, d1 = base.emb.shape
+    if not v0 <= n_rows <= max_v:
+        raise ValueError(f"cannot pad {v0} active rows to {n_rows} in "
+                         f"{max_v} slots")
+    n = n_rows - v0
+    dev = base.emb.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = base.curvature
+    base.emb[v0:n_rows] = L.random_points(gen, n, d1 - 1, c=c, sigma=sigma,
+                                          device=dev)
+    base.lengths[v0:n_rows] = 1
+    st.byte_lengths[v0:n_rows] = 1
+    st.has_vowel[v0:n_rows] = False
+    p2 = scoring.HASH_P2
+    have = (st.token_hash[:v0, 0].long() * p2 + st.token_hash[:v0, 1].long())
+    keys = torch.randint(0, scoring.HASH_P1 * p2, (2 * n + 64,),
+                         generator=gen, device=dev)
+    keys = torch.unique(keys)
+    keys = keys[torch.randperm(keys.numel(), generator=gen, device=dev)]
+    keys = keys[~torch.isin(keys, have)][:n]
+    if keys.numel() < n:
+        raise RuntimeError("too few distinct token hashes were drawn")
+    st.token_hash[v0:n_rows, 0] = (keys // p2).int()
+    st.token_hash[v0:n_rows, 1] = (keys % p2).int()
+    base.best_dist, base.best_j = pairwise.pairwise_min_best(base.emb,
+                                                             n_rows, c)
+    base.vocab_size = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+    return st

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels: the JAX package's clamp
 // constants (hyptokenizer_tpu/ops/lorentz.py), the log-form acosh of the
-// plain version (ops/lorentz.py `acosh`), warp sums and the (value, index)
-// argmin with ties to the lower index.
+// plain version (ops/lorentz.py `acosh`), warp sums, the (value, index)
+// argmin with ties to the lower index, and the row ownership and grid
+// barrier of the cooperative grids (K2's fold, K4).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,4 +49,90 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
   }
 }
 
+// Eight loads through L2 (ld.global.cg) of base[i[0..7]], sent back to
+// back in one asm statement: left to itself, under register pressure the
+// compiler moves each load next to its use and so serialises their
+// latencies.
+__device__ __forceinline__ void ldcg8(const float* base, const int (&i)[8],
+                                      float (&x)[8]) {
+  asm volatile(
+      "ld.global.cg.f32 %0, [%8];\n\t"
+      "ld.global.cg.f32 %1, [%9];\n\t"
+      "ld.global.cg.f32 %2, [%10];\n\t"
+      "ld.global.cg.f32 %3, [%11];\n\t"
+      "ld.global.cg.f32 %4, [%12];\n\t"
+      "ld.global.cg.f32 %5, [%13];\n\t"
+      "ld.global.cg.f32 %6, [%14];\n\t"
+      "ld.global.cg.f32 %7, [%15];"
+      : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3]), "=f"(x[4]),
+        "=f"(x[5]), "=f"(x[6]), "=f"(x[7])
+      : "l"(base + i[0]), "l"(base + i[1]), "l"(base + i[2]),
+        "l"(base + i[3]), "l"(base + i[4]), "l"(base + i[5]),
+        "l"(base + i[6]), "l"(base + i[7])
+      : "memory");
+}
+
+// Rows are owned by the blocks of a cooperative grid in chunks of
+// kOwnChunk rows: chunk c by block c % g.
+constexpr int kOwnChunk = 32;
+
+// Row of the k-th row owned by block b of a grid of g blocks.
+__device__ __forceinline__ int owned_row(int k, int b, int g) {
+  return ((k / kOwnChunk) * g + b) * kOwnChunk + (k % kOwnChunk);
+}
+
+// All blocks meet; writes before it are visible after it to loads that
+// bypass L1 (__ldcg). `arrived` is one word, zeroed before the launch: each
+// block adds 1 to it, block 0 adds 2^31 - (n_blocks - 1), so the last
+// arrival flips its top bit and the low bits return to where they were (the
+// scheme of cooperative_groups' grid sync: one atomic per block, no reset).
+// The cooperative launch makes every block resident, so spinning cannot
+// deadlock.
+__device__ inline void grid_barrier(unsigned* arrived, unsigned n_blocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (n_blocks - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(arrived, add);
+    while (((old ^ *(volatile unsigned*)arrived) & 0x80000000u) == 0) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Phase clock for tools/torch_step_profile.py. Built with -DHYPTOK_PROFILE,
+// HYPTOK_MARK(k) makes thread 0 of block 0 add the SM cycles since its
+// previous mark to phase k of `hyptok_profile` (k = -1 only restarts the
+// clock), read back and zeroed by hyptok_profile_read; in the kernels' own
+// build it is empty.
+#ifdef HYPTOK_PROFILE
+constexpr int kProfilePhases = 16;
+__device__ unsigned long long hyptok_profile[kProfilePhases];
+__device__ unsigned long long hyptok_profile_last;
+
+__device__ __forceinline__ void profile_mark(int k) {
+  if (threadIdx.x == 0 && blockIdx.x == 0) {
+    const unsigned long long now = clock64();
+    if (k >= 0) hyptok_profile[k] += now - hyptok_profile_last;
+    hyptok_profile_last = now;
+  }
+}
+#define HYPTOK_MARK(k) hyptok::profile_mark(k)
+#else
+#define HYPTOK_MARK(k) ((void)0)
+#endif
+
 }  // namespace hyptok
+
+#ifdef HYPTOK_PROFILE
+extern "C" int hyptok_profile_read(unsigned long long* out) {
+  const size_t n = sizeof(unsigned long long) * hyptok::kProfilePhases;
+  cudaError_t err = cudaMemcpyFromSymbol(out, hyptok::hyptok_profile, n);
+  if (err == cudaSuccess) {
+    const unsigned long long zero[hyptok::kProfilePhases] = {};
+    err = cudaMemcpyToSymbol(hyptok::hyptok_profile, zero, n);
+  }
+  return (int)err;
+}
+#endif

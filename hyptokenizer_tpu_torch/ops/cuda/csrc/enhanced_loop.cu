@@ -31,37 +31,50 @@
 // step budget and the next curvature event (`curv_stop`); the corpus sync
 // and the curvature Adam step run in PyTorch between launches.
 //
-// Design. One thread block, looping over the steps; the state stays in
-// device memory (served from L2) and the loop scalars in shared memory.
+// Design. K1 is one thread block, looping over the steps; the state stays
+// in device memory (served from L2) and the loop scalars in shared memory.
 // The batch's arrays live in dynamic shared memory sized by merge_batch.
 // The warps take the applied merges of a batch by warp stride, one merge
 // at a time (the midpoint needs only the pre-batch rows, and a batch never
-// refers to a token made in the same batch). K2's fold stages the <= nb+1
-// new rows, signature-folded, in shared memory (all at once when they fit
-// kNewFloats, else kFoldGroup rows at a time in chunks of coordinates);
-// one thread per row r < vocab_post sums their grams with its row, applies
-// the length gate, and keeps a strict < in increasing slot order (which
-// gives the plain version's lowest-column tie break). It needs only the
-// rows below vocab_post, where the TPU kernel streams the whole padded
-// buffer; the output is the same. The dense candidate's coherence stages
-// its midpoint in chunks of kMidChunk coordinates and holds kSampleBlock
-// sample grams at a time, so neither d nor the sample count is bounded.
-// The 128-lane row layout, the sum-extraction reads, the matmul prefix
-// sums and the (g, 128, 128) fold tiles of the TPU kernel are TPU
-// workarounds and are gone.
+// refers to a token made in the same batch). The dense candidate's
+// coherence stages its midpoint in chunks of kMidChunk coordinates and
+// holds kSampleBlock sample grams at a time, so neither d nor the sample
+// count is bounded. The 128-lane row layout, the sum-extraction reads, the
+// matmul prefix sums and the (g, 128, 128) fold tiles of the TPU kernel
+// are TPU workarounds and are gone.
+//
+// K2 is a cooperative grid (the occupancy query times the SM count) whose
+// block 0 runs everything K1 runs plus the dense candidate, and whose
+// blocks all fold. Rows are owned in 32-row chunks by block (common.cuh
+// `owned_row`). A step of block 0: reduce the blocks' partial minima of
+// best_dist to the dense candidate, score it, scan and batch the queue,
+// merge, invalidate and consume; then the fold. The fold stages the <=
+// nb+1 new rows, signature-folded, in shared memory (all at once when they
+// fit kNewFloats, else kFoldGroup rows at a time in chunks of
+// coordinates), and folds them into the rows below vocab_post, kRowLanes
+// lanes per row over the coordinates (kPer loads in flight at a time), with
+// a strict < in increasing slot order (the plain version's lowest-column
+// tie break); the same pass leaves the block's partial argmin for the
+// next step. Block 0 publishes a fold event (vocab0, n_apply); every
+// other block, waiting on the event's number, folds its own rows and adds
+// one to a count; block 0 folds its own rows and waits for the count
+// before it reads the partials of the next step. That is the two meeting points
+// of a step (the other blocks wait for block 0's rows, then block 0 waits
+// for their fold), each one-sided, so a step costs one event round trip
+// and no full grid barrier; a step without merges costs none. The rows
+// stay in global memory, served from L2: the curvature rescale rewrites
+// them between launches.
 //
 // Bound. K1: a serial chain of merge_batch-sized steps, each touching a few
 // K-entry queues and at most 2*nb+nb embedding rows: it moves far too few
 // bytes to be bandwidth-bound and is bound by the latency of its serial
-// steps (block barriers and dependent global reads). K2 adds per step a read
-// of best_dist for the argmin and the fold: read the active rows' embeddings
-// (vocab_post x d1 x 4 B), their lengths and best_dist/best_j, write
-// best_dist/best_j; at a full 50,176-row vocabulary about 21.5 MB per step,
-// 6.4 us at 3.35 TB/s, above the fold's <= 17 x V x 101 x 2 FLOP at 67
-// TFLOP/s. One block on one SM cannot approach either: the one-block fold
-// gives up all but one SM's bandwidth and FFMA rate, knowingly. Spreading
-// it over the grid (a cooperative launch with grid sync, or a per-step fold
-// kernel) and making K1's steps faster are later work.
+// steps (block barriers and dependent global reads). K2, read once, adds
+// the active rows (vocab x d1 x 4 B, about 20 MB at 49k rows and d+1 =
+// 101) and the candidates; its fold needs 2 d1 + 8 FLOP per active row per
+// merge, about 10 MFLOP per merge at 49k rows (0.15 us at 67 TFLOP/s).
+// Both are far below block 0's serial step (queue scan, batch, merges) and
+// the event round trip, which bound K2's step; spreading the fold and the
+// argmin over the grid keeps them off that chain at any vocabulary.
 //
 // Numerics: float32 with the log-form acosh and the JAX package's clamp
 // constants. The Minkowski dots and the coherence average are summed in
@@ -88,6 +101,13 @@ constexpr int kMaxBatch = 8192;  // queue batch; its arrays are dynamic
 constexpr int kMidChunk = 128;   // K2 stages the dense midpoint by 128 floats
 constexpr int kNewFloats = 8192; // K2's staging buffer for the fold's rows
 constexpr int kFoldGroup = 8;  // new columns summed per pass over a row
+constexpr int kRowLanes = 8;   // K2's fold: lanes per row, over coordinates
+constexpr int kPer = 8;        // K2: loads in flight per lane before use
+static_assert(kPer == 8, "the fold's loads go through ldcg8");
+constexpr int kRowGroups = kThreads / kRowLanes;  // rows per pass of a block
+// K2's event from block 0 to the other blocks: its number, then a halt
+// flag or the fold's new rows (vocab0, n_apply).
+enum { E_SEQ, E_HALT, E_VOCAB0, E_N_APPLY, E_COUNT };
 constexpr int kHashP1 = 32749;
 constexpr int kHashP2 = 32719;
 
@@ -132,6 +152,11 @@ struct Params {
   int table_size, morph_len, word_len, n_samples;
   int needs_corpus, use_freq, use_comp, max_token_len;
   float w_alpha, w_beta, w_gamma, w_comp, w_morph;
+  // K2's cooperative grid.
+  float* part_v;         // (grid,) each block's minimum of best_dist
+  int* part_i;           // (grid,) its row
+  int* event;            // (E_COUNT,) block 0's last event, zeroed
+  unsigned* done;        // (1,) events the other blocks finished, zeroed
 };
 
 // Coefficients of the length-weighted geodesic point of rows ci and cj
@@ -242,6 +267,267 @@ __device__ bool in_sorted(const int* table, int len, int size, int key) {
 
 constexpr int kSampleBlock = 512;  // K2's coherence grams held at a time
 
+// K2: the block's (minimum of best_dist, row) over its rows, lowest row on
+// ties, from each thread's (v, i) to partial b (block 0 reduces them).
+__device__ void publish_partial(const Params& p, int b, float v, int i,
+                                float* s_red_f, int* s_red_i) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  warp_argmin(v, i);
+  if (lane == 0) {
+    s_red_f[warp] = v;
+    s_red_i[warp] = i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v = s_red_f[lane];
+    i = s_red_i[lane];
+    warp_argmin(v, i);
+    if (lane == 0) {
+      p.part_v[b] = v;
+      p.part_i[b] = i;
+    }
+  }
+}
+
+// The partial of the rows below `vocab` that block b of g owns.
+__device__ void first_partial(const Params& p, int vocab, int b, int g,
+                              float* s_red_f, int* s_red_i) {
+  float v = INFINITY;
+  int i = INT_MAX;
+  for (int k = threadIdx.x;; k += kThreads) {
+    const int r = owned_row(k, b, g);
+    if (r >= vocab) break;
+    argmin_step(v, i, p.best_dist[r], r);
+  }
+  publish_partial(p, b, v, i, s_red_f, s_red_i);
+}
+
+// One row of K2's fold, held by its kRowLanes lanes.
+struct FoldRow {
+  const float* row;  // its coordinates
+  int r, len;        // row, token length
+  bool live;         // r < vocab_post
+  float best;        // its candidate, updated by the fold
+  int arg;           // the new column that improved it, or -1
+};
+
+// New columns t0 .. t0 + NQ of K2's fold (those below n_apply count)
+// against one row: kRowLanes lanes take its coordinates, kPer loads in
+// flight each, then a strict < in increasing slot order. Staging of the
+// columns by slabs (when not `whole`) is shared by the block.
+template <int NQ>
+__device__ void fold_columns(const Params& p, float* s_new,
+                             const int* s_nlen, int vocab0, int n_apply,
+                             int t0, bool whole, int kc, float sqrt_c,
+                             FoldRow& fr) {
+  const int tid = threadIdx.x;
+  const int sub = tid & (kRowLanes - 1);
+  const int d1 = p.d1;
+  const int nq = min(NQ, n_apply - t0);
+  float acc[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) acc[q] = 0.0f;
+  for (int c0 = 0; c0 < d1; c0 += kc) {
+    const int c1 = min(c0 + kc, d1);
+    // buf[q * kc + (e - off)] is coordinate e of new row t0 + q.
+    const float* buf = s_new + (whole ? t0 * d1 : 0);
+    const int off = whole ? 0 : c0;
+    if (!whole) {
+      __syncthreads();
+      const int w = c1 - c0;
+      for (int f = tid; f < kFoldGroup * w; f += kThreads) {
+        const int q = f / w;
+        const int e = c0 + f - q * w;
+        const int t = t0 + q;
+        const float v =
+            t < n_apply ? __ldcg(p.emb + (size_t)(vocab0 + t) * d1 + e)
+                        : 0.0f;
+        s_new[q * kc + e - c0] = e == 0 ? v : -v;
+      }
+      __syncthreads();
+    }
+    if (fr.live) {
+      for (int e0 = c0 + sub; e0 < c1; e0 += kRowLanes * kPer) {
+        // All kPer loads in flight at once (addresses past c1 clamped to
+        // the row's last coordinate; their values are not used).
+        int at[kPer];
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) at[u] = min(e0 + kRowLanes * u, c1 - 1);
+        float x[kPer];
+        ldcg8(fr.row, at, x);
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int e = e0 + kRowLanes * u;
+          if (e < c1) {
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+              acc[q] = fmaf(buf[q * kc + e - off], x[u], acc[q]);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    for (int o = 1; o < kRowLanes; o <<= 1) {
+      acc[q] += __shfl_xor_sync(kFull, acc[q], o);
+    }
+  }
+  if (fr.live && sub == 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int t = t0 + q;
+      if (q < nq && fr.r < vocab0 + t &&
+          (p.max_token_len <= 0 || fr.len + s_nlen[t] <= p.max_token_len)) {
+        const float d = acosh_log(fmaxf(acc[q], 1.0f + kAcoshEps)) / sqrt_c;
+        if (d < fr.best) {
+          fr.best = d;
+          fr.arg = vocab0 + t;
+        }
+      }
+    }
+  }
+}
+
+// K2's batched column fold over the rows block b of g owns: every row r <
+// vocab0 + n_apply gains the new columns slot > r that pass the length
+// gate, with a strict < in increasing slot order (the plain version's
+// lowest-column tie break); in the same pass, the block's partial argmin
+// of best_dist for the next step. The new rows, signature-folded, are
+// staged in shared memory all at once when they fit kNewFloats (`whole`),
+// else kFoldGroup rows at a time in chunks of `kc` coordinates, restaged
+// for every pass of kRowGroups rows. kRowLanes lanes take a row, by
+// coordinates, so a warp's loads cover a few contiguous pieces of rows.
+// Rows, lengths and candidates written by other blocks (block 0's new
+// rows and invalidations) are read through L2.
+__device__ void dense_fold(const Params& p, int vocab0, int n_apply,
+                           float sqrt_c, int b, int g, float* s_new,
+                           int* s_nlen, float* s_red_f, int* s_red_i) {
+  const int tid = threadIdx.x;
+  const int sub = tid & (kRowLanes - 1);
+  const int grp = tid / kRowLanes;
+  const int d1 = p.d1;
+  const int vpost = vocab0 + n_apply;
+  const int n_pad = (n_apply + kFoldGroup - 1) / kFoldGroup * kFoldGroup;
+  const bool whole = n_pad * d1 <= kNewFloats;
+  const int kc = whole ? d1 : kNewFloats / kFoldGroup;
+  if (whole) {
+    for (int f = tid; f < n_apply * d1; f += kThreads) {
+      const int t = f / d1;
+      const int e = f - t * d1;
+      const float v = __ldcg(p.emb + (size_t)(vocab0 + t) * d1 + e);
+      s_new[t * d1 + e] = e == 0 ? v : -v;
+    }
+  }
+  for (int t = tid; t < n_apply; t += kThreads) {
+    s_nlen[t] = __ldcg(p.lengths + vocab0 + t);
+  }
+  __syncthreads();
+  HYPTOK_MARK(7);
+  float pv = INFINITY;
+  int pi = INT_MAX;
+  for (int k0 = 0; owned_row(k0, b, g) < vpost; k0 += kRowGroups) {
+    FoldRow fr;
+    fr.r = owned_row(k0 + grp, b, g);
+    fr.live = fr.r < vpost;
+    fr.row = p.emb + (size_t)(fr.live ? fr.r : 0) * d1;
+    fr.len = fr.live ? __ldcg(p.lengths + fr.r) : 0;
+    fr.best = fr.live ? __ldcg(p.best_dist + fr.r) : INFINITY;
+    fr.arg = -1;
+    HYPTOK_MARK(11);
+    for (int t0 = 0; t0 < n_apply; t0 += kFoldGroup) {
+      // Instantiated for the group's width, so that one new column (the
+      // common case) costs one FMA per coordinate, not kFoldGroup.
+      const int nq = min(kFoldGroup, n_apply - t0);
+      if (nq == 1) {
+        fold_columns<1>(p, s_new, s_nlen, vocab0, n_apply, t0, whole, kc,
+                        sqrt_c, fr);
+      } else if (nq == 2) {
+        fold_columns<2>(p, s_new, s_nlen, vocab0, n_apply, t0, whole, kc,
+                        sqrt_c, fr);
+      } else if (nq <= 4) {
+        fold_columns<4>(p, s_new, s_nlen, vocab0, n_apply, t0, whole, kc,
+                        sqrt_c, fr);
+      } else {
+        fold_columns<8>(p, s_new, s_nlen, vocab0, n_apply, t0, whole, kc,
+                        sqrt_c, fr);
+      }
+    }
+    HYPTOK_MARK(12);
+    if (fr.live && sub == 0) {
+      if (fr.arg >= 0) {
+        p.best_dist[fr.r] = fr.best;
+        p.best_j[fr.r] = fr.arg;
+      }
+      argmin_step(pv, pi, fr.best, fr.r);
+    }
+    HYPTOK_MARK(13);
+  }
+  HYPTOK_MARK(8);
+  publish_partial(p, b, pv, pi, s_red_f, s_red_i);
+  HYPTOK_MARK(9);
+}
+
+// Block 0 waits until the other blocks have finished `expect` events.
+__device__ void wait_done(const Params& p, unsigned expect) {
+  if (threadIdx.x == 0) {
+    while (*(volatile unsigned*)p.done < expect) __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Block 0 publishes event `seq` once its writes (rows, invalidations) are
+// out.
+__device__ void publish_event(const Params& p, int seq, int halt,
+                              int vocab0, int n_apply) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    p.event[E_HALT] = halt;
+    p.event[E_VOCAB0] = vocab0;
+    p.event[E_N_APPLY] = n_apply;
+    __threadfence();
+    *(volatile int*)(p.event + E_SEQ) = seq;
+  }
+}
+
+// The blocks of K2 other than block 0: the first partial, then a fold on
+// each of block 0's fold events, each counted in `done`, until its halt
+// event. Block 0 publishes an event only after every block finished the
+// last.
+__device__ void follow(const Params& p, int vocab, float sqrt_c,
+                       float* s_new, int* s_nlen, float* s_red_f,
+                       int* s_red_i, int* s_ev) {
+  const int b = blockIdx.x;
+  const int g = gridDim.x;
+  first_partial(p, vocab, b, g, s_red_f, s_red_i);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(p.done, 1u);
+  }
+  for (int seen = 1;; ++seen) {
+    if (threadIdx.x == 0) {
+      while (*(volatile int*)(p.event + E_SEQ) < seen) __nanosleep(32);
+      __threadfence();
+      s_ev[0] = __ldcg(p.event + E_HALT);
+      s_ev[1] = __ldcg(p.event + E_VOCAB0);
+      s_ev[2] = __ldcg(p.event + E_N_APPLY);
+    }
+    __syncthreads();
+    if (s_ev[0]) break;
+    dense_fold(p, s_ev[1], s_ev[2], sqrt_c, b, g, s_new, s_nlen, s_red_f,
+               s_red_i);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(p.done, 1u);
+    }
+  }
+}
+
 // Bytes of the batch arrays in dynamic shared memory for a queue batch nb:
 // the selected queue entries (nb) and the applied merges (nb + 1, with the
 // dense candidate): rows i, j, distance, new length.
@@ -271,6 +557,7 @@ enhanced_loop_kernel(Params p) {
   __shared__ int s_degen;
   __shared__ int s_di, s_dj, s_dvalid;
   __shared__ float s_dd, s_dscore;
+  __shared__ int s_ev[kDense ? 3 : 1];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -278,12 +565,28 @@ enhanced_loop_kernel(Params p) {
   if (tid < S_COUNT) s_i[tid] = p.si[tid];
   if (tid < F_COUNT) s_f[tid] = p.sf[tid];
   __syncthreads();
+  // K2 is a cooperative grid: block 0 runs the steps, the other blocks
+  // fold their rows on its events (`follow`). K1 is one block.
+  const float sqrt_c = sqrtf(s_f[F_C]);
+  const int n_blocks = kDense ? gridDim.x : 1;
+  unsigned expect = 0;     // K2: events the other blocks must have finished
+  int seq = 0;             // K2: block 0's last event
+  if constexpr (kDense) {
+    if (blockIdx.x != 0) {
+      follow(p, s_i[S_VOCAB], sqrt_c, s_new, s_nlen, s_red_f, s_red_i,
+             s_ev);
+      return;
+    }
+    first_partial(p, s_i[S_VOCAB], 0, n_blocks, s_red_f, s_red_i);
+    expect = n_blocks - 1;
+  }
 
   const int per = (p.k + kThreads - 1) / kThreads;
   const int lo = min(tid * per, p.k);
   const int hi = min(lo + per, p.k);
   const bool corpus = !kDense || p.needs_corpus;
 
+  HYPTOK_MARK(-1);
   for (int s = 0; s < p.n_steps; ++s) {
     if (tid == 0) {
       const int nm = s_i[S_NM];
@@ -300,6 +603,7 @@ enhanced_loop_kernel(Params p) {
     }
     __syncthreads();
     if (s_halt) break;
+    HYPTOK_MARK(0);
 
     const int pidx = min(max(s_i[S_PHASE] - 1, 0), 2);
     const float thr = s_f[F_THR];
@@ -312,31 +616,33 @@ enhanced_loop_kernel(Params p) {
     int dj = 0;
     bool dvalid = false;
     if constexpr (kDense) {
-      // The dense candidate: argmin of best_dist over the active rows
-      // (rows past the vocabulary hold inf), lowest index on ties.
-      float bv = INFINITY;
-      int bi = INT_MAX;
-      for (int r = tid; r < s_i[S_VOCAB]; r += kThreads) {
-        const float v = p.best_dist[r];
-        if (v < bv) {
-          bv = v;
-          bi = r;
-        }
-      }
-      warp_argmin(bv, bi);
-      if (lane == 0) {
-        s_red_f[warp] = bv;
-        s_red_i[warp] = bi;
-      }
-      __syncthreads();
+      // The dense candidate: argmin of best_dist over the active rows,
+      // lowest index on ties, from the blocks' partials over their rows
+      // (written by the last fold, read through L2).
+      wait_done(p, expect);
+      HYPTOK_MARK(1);
       if (warp == 0) {
-        bv = s_red_f[lane];
-        bi = s_red_i[lane];
+        float bv = INFINITY;
+        int bi = INT_MAX;
+        for (int q0 = lane; q0 < n_blocks; q0 += 32 * kPer) {
+          float part_v[kPer];
+          int part_i[kPer];
+#pragma unroll
+          for (int u = 0; u < kPer; ++u) {
+            const int q = q0 + 32 * u;
+            part_v[u] = q < n_blocks ? __ldcg(p.part_v + q) : INFINITY;
+            part_i[u] = q < n_blocks ? __ldcg(p.part_i + q) : INT_MAX;
+          }
+#pragma unroll
+          for (int u = 0; u < kPer; ++u) {
+            argmin_step(bv, bi, part_v[u], part_i[u]);
+          }
+        }
         warp_argmin(bv, bi);
         if (lane == 0) {
           const int i0 = bi == INT_MAX ? 0 : bi;
-          const float d0 = p.best_dist[i0];
-          const int j0 = min(max(p.best_j[i0], 0), p.max_v - 1);
+          const float d0 = __ldcg(p.best_dist + i0);
+          const int j0 = min(max(__ldcg(p.best_j + i0), 0), p.max_v - 1);
           bool ok = isfinite(d0) && d0 < thr;
           if (p.max_token_len > 0) {
             // Backstop for the fold's length gate (a state re-scanned on
@@ -473,6 +779,7 @@ enhanced_loop_kernel(Params p) {
       }
     }
 
+    HYPTOK_MARK(2);
     // Rank the valid entries: exclusive block scan of per-thread counts
     // over contiguous runs of the queue, so ranks follow queue order.
     if (corpus) {
@@ -519,6 +826,7 @@ enhanced_loop_kernel(Params p) {
       }
     }
     __syncthreads();
+    HYPTOK_MARK(3);
 
     if (tid == 0) {
       const int n_valid = corpus ? s_n_valid : 0;
@@ -556,17 +864,21 @@ enhanced_loop_kernel(Params p) {
     }
     __syncthreads();
 
+    HYPTOK_MARK(4);
     const int n_apply = s_n_apply;
+    const int vocab0 = s_i[S_VOCAB];
     // One warp per merge, by warp stride over the batch.
     for (int t = warp; t < n_apply; t += kWarps) {
       merge_one(p, lane, s_ci[t], s_cj[t], s_i[S_VOCAB] + t, s_i[S_NM] + t,
                 s_cd[t], s_f[F_C]);
     }
     if (kDense) {
-      // Invalidate row ci iff its tracked best was just consumed (best_j is
-      // the pre-batch one: the fold below has not run).
+      // Invalidate row ci iff its tracked best was just consumed (best_j
+      // is the pre-batch one: the grid's fold runs after barrier A).
       for (int t = tid; t < n_apply; t += kThreads) {
-        if (p.best_j[s_ci[t]] == s_cj[t]) p.best_dist[s_ci[t]] = INFINITY;
+        if (__ldcg(p.best_j + s_ci[t]) == s_cj[t]) {
+          p.best_dist[s_ci[t]] = INFINITY;
+        }
       }
     }
     if (corpus && n_apply > 0) {
@@ -583,97 +895,7 @@ enhanced_loop_kernel(Params p) {
       }
     }
     __syncthreads();
-
-    if constexpr (kDense) {
-      if (n_apply > 0) {
-        // The batched column fold: every row r < vocab_post gains the new
-        // columns slot > r that pass the length gate. The new rows,
-        // signature-folded, are staged in shared memory all at once when
-        // they fit (`whole`), else kFoldGroup rows at a time in chunks of
-        // `kc` coordinates, restaged for every pass of kThreads rows.
-        const int vocab0 = s_i[S_VOCAB];
-        const int n_pad = (n_apply + kFoldGroup - 1) / kFoldGroup * kFoldGroup;
-        const bool whole = n_pad * p.d1 <= kNewFloats;
-        const int kc = whole ? p.d1 : kNewFloats / kFoldGroup;
-        if (whole) {
-          for (int f = tid; f < n_apply * p.d1; f += kThreads) {
-            const int t = f / p.d1;
-            const int e = f - t * p.d1;
-            const float v = p.emb[(size_t)(vocab0 + t) * p.d1 + e];
-            s_new[t * p.d1 + e] = e == 0 ? v : -v;
-          }
-        }
-        for (int t = tid; t < n_apply; t += kThreads) {
-          s_nlen[t] = p.lengths[vocab0 + t];
-        }
-        __syncthreads();
-        const float sqrt_c = sqrtf(s_f[F_C]);
-        const int vpost = vocab0 + n_apply;
-        for (int r0 = 0; r0 < vpost; r0 += kThreads) {
-          const int r = r0 + tid;
-          const bool live = r < vpost;
-          const float* row = p.emb + (size_t)(live ? r : 0) * p.d1;
-          const int lr = live ? p.lengths[r] : 0;
-          float best = live ? p.best_dist[r] : INFINITY;
-          int arg = -1;
-          for (int t0 = 0; t0 < n_apply; t0 += kFoldGroup) {
-            float acc[kFoldGroup];
-#pragma unroll
-            for (int q = 0; q < kFoldGroup; ++q) acc[q] = 0.0f;
-            for (int c0 = 0; c0 < p.d1; c0 += kc) {
-              const int c1 = min(c0 + kc, p.d1);
-              // s_new[q * stride + (e - off)] is coordinate e of new row
-              // t0 + q.
-              const float* buf = s_new + (whole ? t0 * p.d1 : 0);
-              const int off = whole ? 0 : c0;
-              if (!whole) {
-                __syncthreads();
-                const int w = c1 - c0;
-                for (int f = tid; f < kFoldGroup * w; f += kThreads) {
-                  const int q = f / w;
-                  const int e = c0 + f - q * w;
-                  const int t = t0 + q;
-                  const float v =
-                      t < n_apply ? p.emb[(size_t)(vocab0 + t) * p.d1 + e]
-                                  : 0.0f;
-                  s_new[q * kc + e - c0] = e == 0 ? v : -v;
-                }
-                __syncthreads();
-              }
-              const int stride = kc;
-              if (live) {
-                for (int e = c0; e < c1; ++e) {
-                  const float x = row[e];
-#pragma unroll
-                  for (int q = 0; q < kFoldGroup; ++q) {
-                    acc[q] = fmaf(buf[q * stride + e - off], x, acc[q]);
-                  }
-                }
-              }
-            }
-#pragma unroll
-            for (int q = 0; q < kFoldGroup; ++q) {
-              const int t = t0 + q;
-              if (live && t < n_apply && r < vocab0 + t &&
-                  (p.max_token_len <= 0 ||
-                   lr + s_nlen[t] <= p.max_token_len)) {
-                const float d =
-                    acosh_log(fmaxf(acc[q], 1.0f + kAcoshEps)) / sqrt_c;
-                if (d < best) {
-                  best = d;
-                  arg = vocab0 + t;
-                }
-              }
-            }
-          }
-          if (arg >= 0) {
-            p.best_dist[r] = best;
-            p.best_j[r] = arg;
-          }
-        }
-        __syncthreads();
-      }
-    }
+    HYPTOK_MARK(5);
 
     if (tid == 0) {
       float thr2 = s_f[F_THR];
@@ -708,8 +930,26 @@ enhanced_loop_kernel(Params p) {
       if (s_i[S_VOCAB] >= p.max_v) s_i[S_STOPPED] = 1;
     }
     __syncthreads();
+
+    if constexpr (kDense) {
+      // The fold: every block on its own rows (block 0 publishes the
+      // event; the next step's candidate waits for the others to finish).
+      HYPTOK_MARK(6);
+      if (n_apply > 0) {
+        publish_event(p, ++seq, 0, vocab0, n_apply);
+        expect += n_blocks - 1;
+        dense_fold(p, vocab0, n_apply, sqrt_c, 0, n_blocks, s_new, s_nlen,
+                   s_red_f, s_red_i);
+      }
+    }
+    HYPTOK_MARK(10);
   }
 
+  if constexpr (kDense) {
+    // The other blocks stop after the last fold.
+    wait_done(p, expect);
+    publish_event(p, ++seq, 1, 0, 0);
+  }
   if (tid < S_COUNT) p.si[tid] = s_i[tid];
   if (tid < F_COUNT) p.sf[tid] = s_f[tid];
 }
@@ -759,18 +999,12 @@ Params base_params(void* emb, void* lengths, void* byte_lengths,
   return p;
 }
 
-// Launch one block of the K1 or K2 instance with the batch arrays of `nb`
-// in dynamic shared memory.
+// Allow the batch arrays of `nb` in dynamic shared memory for an instance.
 template <bool kDense>
-int launch(const Params& p, void* stream) {
-  const int smem = batch_smem_bytes(p.nb);
-  cudaError_t err = cudaFuncSetAttribute(
-      enhanced_loop_kernel<kDense>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  enhanced_loop_kernel<kDense>
-      <<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+cudaError_t allow_batch(int nb) {
+  return cudaFuncSetAttribute(enhanced_loop_kernel<kDense>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              batch_smem_bytes(nb));
 }
 
 }  // namespace
@@ -789,12 +1023,40 @@ extern "C" int enhanced_loop_launch(
       q_i, q_j, q_dist, q_score, powers, si, sf, max_v, d1, k, nb, n_steps,
       max_hash_len, use_hier, phase2, phase3, thr1, thr2, thr3, adaptive,
       growth_every, growth, empty_after, empty_growth, empty_stop);
-  return launch<false>(p, stream);
+  cudaError_t err = allow_batch<false>(nb);
+  if (err != cudaSuccess) return (int)err;
+  enhanced_loop_kernel<false><<<1, kThreads, batch_smem_bytes(nb),
+                                static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of K2's cooperative grid on the current device for a queue batch
+// nb (the occupancy query times the SM count), after allowing its dynamic
+// shared memory; a negative CUDA error code if a call fails.
+extern "C" int enhanced_loop_dense_grid(int nb) {
+  if (nb < 1 || nb > kMaxBatch) return -(int)cudaErrorInvalidValue;
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) err = allow_batch<true>(nb);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, enhanced_loop_kernel<true>, kThreads, batch_smem_bytes(nb));
+  }
+  if (err != cudaSuccess) return -(int)err;
+  return per_sm * sms;
 }
 
 // K2: the arguments of enhanced_loop_launch, then the dense channel's
 // buffers (best_dist, best_j, pair table, morph/word tables, coherence
-// samples), their sizes, its switches and the score weights.
+// samples), their sizes, its switches and the score weights, then the
+// cooperative grid's size (enhanced_loop_dense_grid) and scratch: the
+// partials (grid floats, grid ints), block 0's event (E_COUNT ints,
+// zeroed) and the count of finished events (1, zeroed).
 extern "C" int enhanced_loop_dense_launch(
     void* emb, void* lengths, void* byte_lengths, void* has_vowel,
     void* token_hash, void* merges, void* merge_dists, void* q_i, void* q_j,
@@ -807,9 +1069,10 @@ extern "C" int enhanced_loop_dense_launch(
     int morph_len, int word_len, int n_samples, int needs_corpus,
     int use_freq, int use_comp, int max_token_len,
     float w_alpha, float w_beta, float w_gamma, float w_comp, float w_morph,
+    int grid, void* part_v, void* part_i, void* event, void* done,
     void* stream) {
   if (nb < 1 || nb > kMaxBatch || table_size < 1 || morph_len < 1 ||
-      word_len < 1) {
+      word_len < 1 || grid < 1) {
     return (int)cudaErrorInvalidValue;
   }
   Params p = base_params(
@@ -837,5 +1100,16 @@ extern "C" int enhanced_loop_dense_launch(
   p.w_gamma = w_gamma;
   p.w_comp = w_comp;
   p.w_morph = w_morph;
-  return launch<true>(p, stream);
+  p.part_v = static_cast<float*>(part_v);
+  p.part_i = static_cast<int*>(part_i);
+  p.event = static_cast<int*>(event);
+  p.done = static_cast<unsigned*>(done);
+  cudaError_t err = allow_batch<true>(nb);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)enhanced_loop_kernel<true>, dim3(grid), dim3(kThreads),
+      args, (size_t)batch_smem_bytes(nb), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -13,7 +13,9 @@ looped to the same halt conditions by :func:`run_segment_plain`.
 :func:`run_segment` launches the configuration's kernel for a state on the
 card and runs the plain version for a state on the CPU; for a CUDA state it
 launches or raises, never falls back. ``launches`` counts K1's launches,
-``dense_launches`` K2's.
+``dense_launches`` K2's. K1 is one thread block; K2 is a cooperative grid
+(:func:`dense_grid_size`) whose block 0 runs the steps and whose blocks
+fold their own rows.
 
 :func:`run_chunk` is the segment relaunch loop: one corpus sync, then
 segments that halt at every adaptive-curvature event, with the curvature
@@ -41,6 +43,7 @@ NO_CURVATURE_STOP = 1 << 30
 
 launches = 0            # K1 launches since the last reset_launches()
 dense_launches = 0      # K2 launches since the last reset_launches()
+_GRID: dict = {}        # (device index, merge_batch) -> K2's grid blocks
 
 
 def reset_launches() -> None:
@@ -61,10 +64,29 @@ def _launcher(dense: bool):
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         args = [ptr] * 14 + [i] * 9 + [f] * 3 + [i, i, f, i, f, i]
         if dense:
-            args += [ptr] * 7 + [i] * 8 + [f] * 5
+            args += [ptr] * 7 + [i] * 8 + [f] * 5 + [i] + [ptr] * 4
         fn.argtypes = args + [ptr]
         fn.restype = ctypes.c_int
+        lib.enhanced_loop_dense_grid.argtypes = [ctypes.c_int]
+        lib.enhanced_loop_dense_grid.restype = ctypes.c_int
     return fn
+
+
+def dense_grid_size(device: torch.device, config) -> int:
+    """Blocks of K2's cooperative grid on ``device`` for the
+    configuration's ``merge_batch``: the occupancy query times the SM
+    count. Raises if the query fails."""
+    nb = max(1, config.merge_batch)
+    key = (device.index, nb)
+    if key not in _GRID:
+        _launcher(True)
+        with torch.cuda.device(device):
+            g = _build.load(SOURCE).enhanced_loop_dense_grid(nb)
+        if g < 1:
+            raise RuntimeError(f"enhanced_loop_dense: the occupancy query "
+                               f"failed ({g})")
+        _GRID[key] = g
+    return _GRID[key]
 
 
 def _halted(sc: dict, m_budget: int, s_budget: int, curv_stop: int) -> bool:
@@ -157,6 +179,13 @@ def run_segment_cuda(st, config, m_budget: int, s_budget: int,
             int(config.use_frequency), int(config.use_compression),
             b.max_token_len,
             *config.weights()]
+        g = dense_grid_size(dev, config)
+        part_v = torch.empty((g,), dtype=torch.float32, device=dev)
+        part_i = torch.empty((g,), dtype=torch.int32, device=dev)
+        # Block 0's event (4 ints) and the count of finished events.
+        sync = torch.zeros((5,), dtype=torch.int32, device=dev)
+        extra += [g, part_v.data_ptr(), part_i.data_ptr(), sync.data_ptr(),
+                  sync[4:].data_ptr()]
     rc = _launcher(dense)(
         base.emb.data_ptr(), base.lengths.data_ptr(),
         st.byte_lengths.data_ptr(), st.has_vowel.data_ptr(),
@@ -223,23 +252,58 @@ def run_chunk(st, config, n_steps: int, sampler,
     return st
 
 
-def segment_bytes(st, config, n_merges: int, fold_rows: int = 0) -> int:
+def segment_bytes(st, config, n_merges: int, dense_rows: int = 0) -> int:
     """Bytes a segment of ``n_merges`` merges must move, each input read
-    once and each output written once: the three phase queues read and
-    their scores written back, two embedding rows and their token features
-    read per merge, and the new row, features and history written.
+    once and each output written once, whatever the kernel reads again: the
+    three phase queues read and their scores written back, the token
+    features of two rows read per merge, and the new row, features and
+    history written.
 
-    With the dense channel, ``fold_rows`` is the sum over the segment's
-    steps of the rows below the post-batch vocabulary: each step's argmin
-    reads their ``best_dist``, and its fold reads their embedding rows,
-    lengths and ``best_dist``/``best_j`` and writes ``best_dist``/``best_j``.
-    """
+    With the dense channel, ``dense_rows`` is the active prefix at the
+    segment's start: its rows' coordinates and lengths are read once, and
+    ``best_dist``/``best_j`` over the final prefix are read and written
+    back once. Without it (K1), the merged pairs' coordinates are read per
+    merge."""
     k3 = 3 * config.queue_size
     d1 = st.base.emb.shape[1]
     queues = k3 * (4 + 4 + 4 + 4) + k3 * 4
-    per_merge_in = 2 * (d1 * 4 + 4 + 4 + 8 + 1)   # rows, len, bytes, hash, vowel
-    per_merge_out = d1 * 4 + 4 + 4 + 8 + 1 + 8 + 4  # + history pair, dist
+    features = 4 + 4 + 8 + 1                      # len, bytes, hash, vowel
+    per_merge_in = 2 * (features + (0 if dense_rows else d1 * 4))
+    per_merge_out = d1 * 4 + features + 8 + 4     # + history pair, dist
     powers = 2 * scoring.MAX_HASH_LEN * 4
-    per_fold_row = 4 + d1 * 4 + 4 + 2 * (4 + 4)
+    dense = 0
+    if dense_rows:
+        v1 = dense_rows + n_merges
+        dense = dense_rows * (d1 * 4 + 4) + v1 * 2 * (4 + 4)
     return (queues + powers + n_merges * (per_merge_in + per_merge_out)
-            + fold_rows * per_fold_row)
+            + dense)
+
+
+def segment_bytes_rereading(st, config, n_merges: int,
+                            fold_rows: int = 0) -> int:
+    """The traffic of a kernel that keeps nothing on chip between steps,
+    for the reader (not a bound): :func:`segment_bytes` of K1, plus, for
+    ``fold_rows`` (the sum over the segment's steps of the rows below the
+    post-batch vocabulary), each step's argmin reading their ``best_dist``
+    and its fold reading their rows, lengths and ``best_dist``/``best_j``
+    and writing ``best_dist``/``best_j``."""
+    d1 = st.base.emb.shape[1]
+    per_fold_row = 4 + d1 * 4 + 4 + 2 * (4 + 4)
+    return segment_bytes(st, config, n_merges) + fold_rows * per_fold_row
+
+
+def segment_ops(config, d1: int, n_merges: int, n_steps: int,
+                dense_rows: int = 0) -> int:
+    """Operations a segment needs on its data: per step a compare per entry
+    of the phase's queue (the scan), per merge a compare per entry of the
+    three queues (consumption) and about 12 FLOP per coordinate (dot,
+    midpoint, projection). With the dense channel (``dense_rows`` active
+    rows at the start), every step's argmin compares at least those rows,
+    and the k-th merge's column is folded into each of its
+    dense_rows + k rows: a d1-long dot (2 d1 FLOP) and an acosh (8)."""
+    k = config.queue_size
+    ops = n_steps * k * 2 + n_merges * (3 * k + 12 * d1)
+    if dense_rows:
+        rows = n_merges * dense_rows + n_merges * (n_merges - 1) // 2
+        ops += n_steps * dense_rows + rows * (2 * d1 + 8)
+    return ops

@@ -15,8 +15,10 @@ order, and a near-tie may reorder a batch. Kernel K3 (ops/cuda/csrc/pairwise.cu)
 ties within 1e-5. Kernel K4 (ops/cuda/csrc/merge_loop.cu) is held to
 ``state.run_merges_plain`` chunk by chunk at d=8
 (``selfcheck._check_base_kernel``) and step by step at d=100 and wider
-(``selfcheck._lockstep_base_steps``). K1/K2 also run ``merge_batch`` 64,
-and K2/K3 wide states (d+1 = 129, 301 and more).
+(``selfcheck._lockstep_base_steps``), with all, part or none of its rows
+in shared memory. K1/K2 also run ``merge_batch`` 64, K2 a state padded to
+8192 active rows, and K2/K3 wide states (d+1 = 129, 301 and more). The K2
+and K4 wrappers refuse CPU and non-contiguous tensors.
 """
 
 import dataclasses
@@ -309,6 +311,89 @@ def test_k4_step_lockstep_with_plain(cuda, d1):
     assert out["k4"] == "pass", out
     assert out["k4_steps"] == 60 and K4.launches == 60
     assert out["k4_merges"] == 60
+
+
+# K4's shared-memory plans at 50,176 slots: every owned row resident
+# (d+1 = 101), part of them (d+1 = 301, prefix past the resident chunks),
+# none (d+1 = 10,001; rows and the new row in global memory).
+K4_RESIDENT_CASES = {
+    "full": dict(n0=40_960, d=100, max_v=50_176, sigma=0.5),
+    "partial": dict(n0=24_576, d=300, max_v=50_176, sigma=0.5),
+    "global": dict(n0=512, d=10_000, max_v=1024, sigma=0.02),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_RESIDENT_CASES))
+def test_k4_step_lockstep_resident(cuda, case):
+    """K4 against ``run_merges_plain`` one launch of one step at a time over
+    100 steps, with all, part or none of each block's rows in shared
+    memory (``merge_loop.smem_plan``)."""
+    kw = K4_RESIDENT_CASES[case]
+    st, cfg = selfcheck.base_state(cuda, threshold=50.0, **kw)
+    plan = K4.smem_plan(kw["max_v"], kw["d"] + 1, K4.grid_size(cuda))
+    want = {"full": plan.resident == plan.owned,
+            "partial": 0 < plan.resident < plan.owned,
+            "global": plan.resident == 0 and plan.row_floats == 0}
+    assert want[case], plan
+    out = {}
+    K4.reset_launches()
+    selfcheck._lockstep_base_steps(st, cfg, 100, out, "k4")
+    assert out["k4"] == "pass", out
+    assert out["k4_steps"] == 100 and K4.launches == 100
+    assert out["k4_merges"] == 100
+
+
+# (d, padded rows): the grid's fold with tens of rows on every block, and
+# with a few rows on each.
+K2_DEEP_CASES = [(8, 8192), (100, 8192), (8, 500)]
+
+
+@pytest.mark.parametrize("d,rows", K2_DEEP_CASES)
+def test_k2_step_lockstep_deep(cuda, d, rows):
+    """K2 against its plain version step by step from an all-features
+    state padded to ``rows`` active rows (``selfcheck.pad_dense_state``)."""
+    tok = dense_tokenizer(cuda, d=d, max_vocab_size=10_240)
+    tok.enh_state = selfcheck.pad_dense_state(tok.enh_state, rows)
+    out = {}
+    K1.reset_launches()
+    selfcheck._lockstep_steps(tok, 2, out, "k2")
+    assert out["k2"] == "pass", out
+    assert out["k2_merges"] >= 8
+    assert K1.dense_launches == out["k2_steps"] and K1.launches == 0
+
+
+def test_k2_chunk_lockstep_padded(cuda):
+    """K2 against its plain version chunk by chunk from 500 active rows:
+    launches of many steps, each merging step a fold event that every
+    block must finish before the next step's candidate."""
+    tok = dense_tokenizer(cuda, max_vocab_size=2048, merge_batch=8)
+    tok.enh_state = selfcheck.pad_dense_state(tok.enh_state, 500)
+    out = {}
+    K1.reset_launches()
+    selfcheck._lockstep_enhanced(tok, 4, 8, out, "k2")
+    assert out["k2"] == "pass", out
+    assert out["k2_merges"] >= 16
+    assert K1.dense_launches > 0 and K1.launches == 0
+
+
+def test_k2_k4_wrappers_refuse_bad_tensors(cuda):
+    """The K2 and K4 wrappers raise, never fall back, on a CPU state or a
+    non-contiguous buffer."""
+    st, cfg = selfcheck.base_state(cuda, n0=64, d=7, max_v=256)
+    bad = dataclasses.replace(st, emb=st.emb.t().contiguous().t())
+    assert not bad.emb.is_contiguous()
+    for state in (bad, selfcheck.base_state("cpu", n0=64, d=7,
+                                            max_v=256)[0]):
+        with pytest.raises(ValueError):
+            K4.run_merges_chunk(state, cfg, 4)
+    tok = dense_tokenizer(cuda)
+    cfg = tok.enh_config
+    st = tok.enh_state
+    bad = dataclasses.replace(st, base=dataclasses.replace(
+        st.base, emb=st.base.emb.t().contiguous().t()))
+    for state in (bad, E.clone_state(dense_tokenizer("cpu").enh_state)):
+        with pytest.raises(ValueError):
+            K1.run_segment_cuda(state, cfg, 10, 10, 10)
 
 
 def test_k4_loop_scalars_match_plain(cuda):

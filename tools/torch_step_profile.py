@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Where a step of the port's kernels K4 and K2 spends its time, on one
+NVIDIA card.
+
+    python3 tools/torch_step_profile.py [--set NAME=VALUE ...]
+
+Builds ``csrc/merge_loop.cu`` and ``csrc/enhanced_loop.cu`` with
+``-DHYPTOK_PROFILE`` (their ``HYPTOK_MARK`` phase marks then make thread 0
+of block 0 add SM cycles per phase, ``csrc/common.cuh``) into
+``hyptokenizer_tpu_torch/_build/``, has the wrappers launch those builds,
+and times with CUDA events:
+
+* K4: a 4096-step chunk from 28,922 and from 45,056 random active rows in
+  50,176 slots (``evals/selfcheck.base_state``, d=100, threshold 5), and
+  the step floor from the latter (threshold 0, no merge);
+* K2: one segment from the all-features constructor's synced state (the
+  smoke's timing shape) and one from that state after 6144 merges padded
+  to 49,152 active rows (``evals/selfcheck.pad_dense_state``), as
+  ``chip_smoke.py`` runs them; and the all-features training before them
+  (6144 merges, 43 to about 6.2k active rows), wall time.
+
+For each, it prints µs per step and each phase's share of block 0's
+cycles, spread over that time. ``--set kRowLanes=4`` (any ``constexpr int``
+of either source) builds a variant with that constant changed, to compare
+layouts without editing the sources. Block 0 is the one that runs K2's serial
+step; in K4 every block runs the same phases. Prints the card line and one
+JSON object. Exits nonzero without a card.
+"""
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import os
+import re
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path.insert(0, ROOT)
+
+# Phase k runs from the mark before HYPTOK_MARK(k) to it.
+K4_PHASES = ["barrier", "reduce partials", "midpoint",
+             "block's partial reduction", "scalars, publish",
+             "owner write", "fold"]
+K2_PHASES = ["halt check", "wait for the grid's fold",
+             "dense candidate and score", "queue scan", "batch",
+             "merges, invalidation, consumption", "scalars",
+             "event, fold staging", "fold passes' ends", "fold's partial",
+             "after the fold", "fold: row loads", "fold: columns",
+             "fold: candidate stores"]
+
+
+def build_profiled(overrides):
+    """The profile builds of K4's and K2's sources, with the ``constexpr
+    int`` constants in ``overrides`` changed, registered as the libraries
+    the wrappers load."""
+    from hyptokenizer_tpu_torch.ops.cuda import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in ("merge_loop", "enhanced_loop"):
+        with open(os.path.join(_build.CSRC, name + ".cu")) as f:
+            text = f.read()
+        for const, value in overrides.items():
+            text = re.sub(rf"(constexpr int {const} = )[^;]+;",
+                          rf"\g<1>{value};", text)
+        src = os.path.join(_build.BUILD_DIR, f"profile-{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        out = os.path.join(_build.BUILD_DIR, f"profile-{name}.so")
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), "-gencode", _build.ARCH, "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-DHYPTOK_PROFILE",
+             "-I", _build.CSRC, "-o", out, src]), out)
+    for name, (proc, out) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed on {name}")
+        lib = ctypes.CDLL(out)
+        lib.hyptok_profile_read.argtypes = [ctypes.c_void_p]
+        lib.hyptok_profile_read.restype = ctypes.c_int
+        _build._LIBS[name] = lib
+
+
+def read_profile(name):
+    """Block 0's cycles per phase since the last read (zeroes them)."""
+    from hyptokenizer_tpu_torch.ops.cuda import _build
+
+    out = (ctypes.c_ulonglong * 16)()
+    torch.cuda.synchronize()
+    rc = _build._LIBS[name].hyptok_profile_read(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"reading the profile failed: CUDA error {rc}")
+    return list(out)
+
+
+def split(phases, cycles, steps, us_per_step):
+    total = sum(cycles[:len(phases)]) or 1
+    return {"us_per_step": us_per_step, "steps": steps,
+            "phases": {ph: {"share": c / total,
+                            "us_per_step": us_per_step * c / total}
+                       for ph, c in zip(phases, cycles)}}
+
+
+def profile_k4():
+    import chip_smoke as C
+    from hyptokenizer_tpu_torch.evals import selfcheck
+
+    out = {}
+    for n0 in (28_922, 45_056):
+        st, cfg = selfcheck.base_state("cuda", n0=n0, d=100, max_v=50_176,
+                                       threshold=5.0)
+        C.time_chunk(st, cfg, C.DIST_CHUNK)          # reads the warm-up
+        read_profile("merge_loop")
+        ms, sk = C.time_chunk(st, cfg, C.DIST_CHUNK)
+        cyc = read_profile("merge_loop")
+        # time_chunk runs a warm-up chunk and the timed one: half the cycles
+        cyc = [c / 2 for c in cyc]
+        steps = int(sk.step) - int(st.step)
+        out[f"k4_{n0}_rows"] = split(K4_PHASES, cyc, steps,
+                                     ms * 1e3 / steps)
+        out[f"k4_{n0}_rows"]["merges"] = int(sk.num_merges)
+    cfg0 = dataclasses.replace(cfg, adaptive_threshold=False,
+                               empty_stop_after=1 << 30)
+    st0 = dataclasses.replace(st, threshold=torch.zeros_like(st.threshold))
+    read_profile("merge_loop")
+    ms, sk = C.time_chunk(st0, cfg0, C.DIST_CHUNK)
+    cyc = [c / 2 for c in read_profile("merge_loop")]
+    out["k4_floor_45056_rows"] = split(K4_PHASES, cyc,
+                                       C.DIST_CHUNK, ms * 1e3 / C.DIST_CHUNK)
+    return out
+
+
+def profile_k2():
+    import chip_smoke as C
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+    from hyptokenizer_tpu_torch.utils import data
+
+    lines = data.read_corpus_lines(C.CORPUS)
+    tok, start, alls = C.main_path_all(lines)
+    cfg = tok.enh_config
+    out = {"k2_training": {key: alls[key] for key in (
+        "train_s", "merges", "merges_per_s", "chunk_seconds")}}
+    for label, st in (("k2_smoke_shape", start),
+                      ("k2_49152_rows",
+                       selfcheck.pad_dense_state(tok.enh_state,
+                                                 C.K2_DEPTH_ROWS))):
+        st0 = E.sync_corpus(E.clone_state(st), cfg,
+                            E.TorchSampler(1, "cuda"))
+        sc = E.state_scalars(st0)
+        freq = cfg.curvature_freq
+        budgets = (sc["num_merges"] + C.LOG_EVERY,
+                   sc["step"] + C.LOG_EVERY + 1024,
+                   (sc["curv_last"] // freq + 1) * freq)
+        read_profile("enhanced_loop")
+        ms, sk = C.time_segment(st0, cfg, budgets)
+        cyc = [c / 2 for c in read_profile("enhanced_loop")]
+        ek = E.state_scalars(sk)
+        steps = ek["step"] - sc["step"]
+        out[label] = split(K2_PHASES, cyc, steps,
+                           ms * 1e3 / steps)
+        out[label]["rows"] = sc["vocab_size"]
+        out[label]["merges"] = ek["num_merges"] - sc["num_merges"]
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("torch_step_profile: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    import chip_smoke as C
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="NAME=VALUE")
+    args = ap.parse_args()
+    overrides = dict(kv.split("=", 1) for kv in args.set)
+    card = C.card_line()
+    build_profiled(overrides)
+    result = {"overrides": overrides}
+    result.update(profile_k4())
+    result.update(profile_k2())
+    print(card)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()
