@@ -30,13 +30,17 @@ Phases:
    and read just after; each kernel of the path must have launched;
 3. each kernel against its plain PyTorch version on the same inputs, on
    the card, at the main path's shapes: K1 on one segment from a synced
-   state (merge history exact, rows within ``ROW_ATOL``); K2 by lockstep
+   state (merge history exact, rows within ``ROW_ATOL``), and its step
+   floor (a segment in which no step merges); K2 by lockstep
    with oracle resync, step by step over 4 segments from the all-features
    state (``evals/selfcheck._lockstep_steps``: merges as the JAX protocol
    compares them, rows within ``ROW_ATOL`` plus their float32 conditioning,
    candidate grams within their float32 rounding bound); K3 at full
    activity (distances within ``DIST_ATOL``, partners equal except at ties
-   within it); K4 by lockstep with oracle resync, step by step over
+   within it; ``gram_err_fp64``, the gram its distance implies against
+   float64) and at both constructors' active rows, where its launches
+   on the paths run (the same gates, on the same inputs); K4 by lockstep
+   with oracle resync, step by step over
    ``K4_LOCKSTEP_STEPS`` steps from the trained distance-only state
    (``evals/selfcheck._lockstep_base_steps``: scalars equal, merged pair
    equal or a tie within the gram's rounding bound, new row within
@@ -52,8 +56,12 @@ Phases:
    padded to ``K2_DEPTH_ROWS`` active rows
    (``evals/selfcheck.pad_dense_state``; one segment timed, one held in
    lockstep);
-5. a ``kernels`` JSON line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``, printed only when every phase passed.
+5. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
+   and its bound at the fp32 rate outside the tensor cores: numbers
+   computed from the shapes, not measured), a ``kernels`` JSON line
+   (measured, with each kernel's ``bound_ms``), the card line, and the
+   last line ``{"ok": true, "device": {...}}``, printed only when every
+   phase passed.
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's package beside this file, on any failed check, or when the
@@ -106,6 +114,8 @@ K2_DEPTH_ROWS = 49_152
 DIST_MAX_TOKEN_LEN = 512
 H100_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 H100_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+H100_TF32_FLOPS = 495e12     # H100 SXM TF32 tensor cores, dense
+TF32_PRODUCTS = 3            # TF32 products per fp32-accurate product
 
 # bench.py bench_enhanced (:114-124): the flagship corpus-only recipe.
 FLAGSHIP = dict(
@@ -465,9 +475,48 @@ def check_k2_depth(tok):
         gram_gap_over_bound=out["k2d_gram_gap_over_bound"])
 
 
+def gate_k3(emb, vocab, c, bd, bj):
+    """K3's gates against its plain version on the same inputs: the same
+    rows without a candidate, distances within ``DIST_ATOL``, partners
+    equal except at ties within ``DIST_ATOL`` in a float64 distance.
+    Returns (max_abs_err, tied rows, the plain version's ms)."""
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bd0, bj0 = K3.pairwise_min_best_plain(emb, vocab, c)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fin = torch.isfinite(bd0)
+    if not torch.equal(torch.isfinite(bd), fin):
+        fail(f"K3 at {vocab} rows leaves other rows without a candidate "
+             f"than its plain version")
+    err = float((bd[fin] - bd0[fin]).abs().max()) if fin.any() else 0.0
+    if not err <= DIST_ATOL:
+        fail(f"K3 distances at {vocab} rows differ by {err} (limit "
+             f"{DIST_ATOL})")
+    rows = torch.nonzero(bj != bj0).flatten()
+    e64 = emb.double()
+    sig = torch.ones(emb.shape[1], dtype=torch.float64, device=emb.device)
+    sig[1:] = -1.0
+
+    def dist(i, j):
+        g = torch.clamp_min((e64[i] * sig * e64[j]).sum(-1), 1.0)
+        return torch.acosh(g)
+
+    gap = (dist(rows, bj[rows].long()) - dist(rows, bj0[rows].long())).abs()
+    if rows.numel() and not float(gap.max()) <= DIST_ATOL:
+        fail(f"K3 partners at {vocab} rows differ from the plain version "
+             f"beyond a tie on {int((gap > DIST_ATOL).sum())} rows")
+    return err, int(rows.numel()), plain_ms
+
+
 def check_k3(ctor_vocab: int):
     """Kernel K3 against its plain version at full activity (50,176 random
-    points, d=100, c=1), and its time at the constructor's active prefix."""
+    points, d=100, c=1) and at the constructors' active prefixes, where
+    its launches on the paths run: the all-features character vocabulary
+    (``ctor_vocab``) and the distance-only path's ``DIST_N0`` rows. Returns
+    its ``kernels`` entry and what this run computed of its plan."""
     from hyptokenizer_tpu_torch.ops import lorentz as L
     from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
 
@@ -490,48 +539,54 @@ def check_k3(ctor_vocab: int):
         return out, a.elapsed_time(b) / reps
 
     (bd, bj), ms = timed(lambda: K3.pairwise_min_best(emb, max_v, c), 3)
-    t0 = time.perf_counter()
-    bd0, bj0 = K3.pairwise_min_best_plain(emb, max_v, c)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    fin = torch.isfinite(bd0)
-    if not torch.equal(torch.isfinite(bd), fin):
-        fail("K3 leaves other rows without a candidate than its plain "
-             "version")
-    err = float((bd[fin] - bd0[fin]).abs().max())
-    if not err <= DIST_ATOL:
-        fail(f"K3 distances differ by {err} (limit {DIST_ATOL})")
-    rows = torch.nonzero(bj != bj0).flatten()
+    err, ties, plain_ms = gate_k3(emb, max_v, c, bd, bj)
+    # The gram the kernel's distance implies at its chosen partner, against
+    # float64 (includes the fp32 acosh's rounding).
     e64 = emb.double()
     sig = torch.ones(d + 1, dtype=torch.float64, device="cuda")
     sig[1:] = -1.0
+    fin_rows = torch.nonzero(torch.isfinite(bd)).flatten()
+    g64 = (e64[fin_rows] * sig * e64[bj[fin_rows].long()]).sum(-1)
+    gram_err = float((torch.cosh(bd[fin_rows].double()) - g64).abs().max())
 
-    def dist(i, j):
-        g = torch.clamp_min((e64[i] * sig * e64[j]).sum(-1), 1.0)
-        return torch.acosh(g)
+    ctor = {}
+    for v in (ctor_vocab, DIST_N0):
+        small = torch.zeros_like(emb)
+        small[:v] = emb[:v]
+        (sd, sj), v_ms = timed(lambda: K3.pairwise_min_best(small, v, c), 20)
+        v_err, v_ties, _ = gate_k3(small, v, c, sd, sj)
+        ctor[v] = dict(ms=v_ms, max_abs_err=v_err, ties=v_ties)
 
-    gap = (dist(rows, bj[rows].long()) - dist(rows, bj0[rows].long())).abs()
-    if rows.numel() and not float(gap.max()) <= DIST_ATOL:
-        fail(f"K3 partners differ from the plain version beyond a tie on "
-             f"{int((gap > DIST_ATOL).sum())} rows")
-
-    small = torch.zeros_like(emb)
-    small[:ctor_vocab] = emb[:ctor_vocab]
-    _, ctor_ms = timed(lambda: K3.pairwise_min_best(small, ctor_vocab, c), 20)
-
+    # The same work whatever computes it: fp32-accurate products at the
+    # card's fastest fp32-accurate rate (three TF32 products each), and,
+    # beside it, at the fp32 rate outside the tensor cores.
     flops = K3.pairwise_flops(max_v, d + 1)
     nbytes = max_v * (d + 1) * 4 + max_v * 8
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_FP32_FLOPS * 1e3
-    return dict(
+    ops_ms = flops * TF32_PRODUCTS / H100_TF32_FLOPS * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {f"rows_{v}": K3.tile_plan(v, d + 1, sms)
+             for v in (max_v, ctor_vocab, DIST_N0)}
+    computed = dict(
+        bound_fp32_cuda_ms=flops / H100_FP32_FLOPS * 1e3,
+        tile_plan={k: dict(tensor_cores=p.tensor_cores, depth=p.depth,
+                           items=len(p.items), chunk=p.chunk)
+                   for k, p in plans.items()})
+    entry = dict(
         name="pairwise_min_best", route="cuda",
         source="hyptokenizer_tpu_torch/ops/cuda/csrc/pairwise.cu",
         replaces="hyptokenizer_tpu/ops/pallas/pairwise.py:44",
         checked=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None, rows=max_v, ties=int(rows.numel()),
-        ctor_rows=ctor_vocab, ctor_ms=ctor_ms)
+        library_ms=None, rows=max_v, ties=ties, gram_err_fp64=gram_err,
+        ctor_rows=ctor_vocab, ctor_ms=ctor[ctor_vocab]["ms"],
+        ctor_max_abs_err=ctor[ctor_vocab]["max_abs_err"],
+        ctor_ties=ctor[ctor_vocab]["ties"],
+        dist_ctor_rows=DIST_N0, dist_ctor_ms=ctor[DIST_N0]["ms"],
+        dist_ctor_max_abs_err=ctor[DIST_N0]["max_abs_err"],
+        dist_ctor_ties=ctor[DIST_N0]["ties"])
+    return entry, computed
 
 
 def check_k1(tok):
@@ -606,6 +661,7 @@ def check_k1(tok):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
 
+    floor_ms, floor_steps = time_k1_floor(st0, cfg)
     d1 = st0.base.emb.shape[1]
     nbytes = K1.segment_bytes(st0, cfg, n)
     steps = a["step"] - sc["step"]
@@ -613,6 +669,7 @@ def check_k1(tok):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FP32_FLOPS * 1e3
     return dict(
+        floor_us_per_step=floor_ms * 1e3 / floor_steps,
         name="enhanced_loop", route="cuda",
         source="hyptokenizer_tpu_torch/ops/cuda/csrc/enhanced_loop.cu",
         replaces="hyptokenizer_tpu/ops/pallas/enhanced_loop.py:156",
@@ -621,6 +678,59 @@ def check_k1(tok):
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, segment_merges=n, segment_steps=steps,
         us_per_step=ms * 1e3 / steps, segment_bytes=nbytes, sync_ms=sync_ms)
+
+
+def k1_floor_state(st0, cfg):
+    """(state, config, budgets) of K1's step floor from the synced state
+    ``st0``: threshold 0, no adaptive growth and no empty-round stop, so no
+    step merges and one launch runs ``SEGMENT_STEPS`` steps of the queue
+    scan, the block's barriers and the loop scalars alone."""
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    cfg0 = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, adaptive_threshold=False, empty_stop_after=1 << 30))
+    st = dataclasses.replace(st0, base=dataclasses.replace(
+        st0.base, threshold=torch.zeros_like(st0.base.threshold)))
+    sc = E.state_scalars(st)
+    budgets = (sc["num_merges"] + LOG_EVERY,
+               sc["step"] + K1.SEGMENT_STEPS + 1, K1.NO_CURVATURE_STOP)
+    return st, cfg0, budgets
+
+
+def time_k1_floor(st0, cfg):
+    """K1's step floor (``k1_floor_state``) timed with CUDA events after a
+    warm-up launch. Returns (ms, steps)."""
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    st, cfg0, budgets = k1_floor_state(st0, cfg)
+    ms, sk = time_k1_segment(st, cfg0, budgets)
+    a, b = E.state_scalars(st), E.state_scalars(sk)
+    steps = b["step"] - a["step"]
+    if steps < 1 or b["num_merges"] != a["num_merges"] or \
+            b["needs_resync"]:
+        fail(f"the K1 floor segment ran {steps} steps and "
+             f"{b['num_merges'] - a['num_merges']} merges")
+    return ms, steps
+
+
+def time_k1_segment(st0, cfg, budgets):
+    """One K1 segment from ``st0`` (left untouched) timed with CUDA events,
+    after a warm-up segment on a clone. Returns (ms, the kernel's end
+    state)."""
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    warm, run = E.clone_state(st0), E.clone_state(st0)
+    K1.run_segment_cuda(warm, cfg, *budgets)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sk = K1.run_segment_cuda(run, cfg, *budgets)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), sk
 
 
 def main_path_distance(lines, device="cuda"):
@@ -865,6 +975,7 @@ def main() -> None:
         sys.path.insert(0, HERE)
     try:
         from hyptokenizer_tpu_torch.ops.cuda import _build
+        from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
         from hyptokenizer_tpu_torch.utils import data
     except ImportError as e:
         fail(f"the port's package is not beside this script: {e}")
@@ -904,10 +1015,16 @@ def main() -> None:
     k1 = check_k1(tok)
     k1["launches"] = main["launches"]["enhanced_loop"]
     k1["launches_per_chunk"] = per_chunk
+    cfg = tok.enh_config
+    computed = {"enhanced_loop": {"smem": dataclasses.asdict(
+        K12.smem_plan(cfg.queue_size, cfg.merge_batch))}}
     print(f"K1 segment: {k1['segment_merges']} merges in "
           f"{k1['segment_steps']} steps, {k1['ms']:.3f} ms on the card, "
           f"plain {k1['plain_ms']:.1f} ms, max_abs_err {k1['max_abs_err']}; "
-          f"one full-size sync {k1['sync_ms']:.1f} ms",
+          f"step floor {k1['floor_us_per_step']:.3f} us (queues resident: "
+          f"{computed['enhanced_loop']['smem']['resident']}); one full-size "
+          f"sync "
+          f"{k1['sync_ms']:.1f} ms",
           flush=True)
     del tok
 
@@ -950,13 +1067,20 @@ def main() -> None:
           f"{k2d['partner_ties']} row_err_over_tol "
           f"{k2d['row_err_over_tol']:.3g} gram_gap_over_bound "
           f"{k2d['gram_gap_over_bound']:.3g}", flush=True)
-    k3 = check_k3(int(start.base.vocab_size))
+    k3, computed["pairwise_min_best"] = check_k3(
+        int(start.base.vocab_size))
     k3["launches"] = alls["launches"]["pairwise_min_best"]
     print(f"K3 at {k3['rows']} active rows: {k3['ms']:.3f} ms on the card, "
           f"plain {k3['plain_ms']:.1f} ms, bound {k3['bound_ms']:.3f} ms "
-          f"({k3['bound_by']}), max_abs_err {k3['max_abs_err']}, ties "
-          f"{k3['ties']}; at the constructor's {k3['ctor_rows']} rows "
-          f"{k3['ctor_ms']:.4f} ms", flush=True)
+          f"({k3['bound_by']}; "
+          f"{computed['pairwise_min_best']['bound_fp32_cuda_ms']:.3f} ms at "
+          f"the fp32 rate), max_abs_err {k3['max_abs_err']}, gram_err_fp64 "
+          f"{k3['gram_err_fp64']:.3g}, ties {k3['ties']}; at the "
+          f"constructors' {k3['ctor_rows']} and {k3['dist_ctor_rows']} rows "
+          f"{k3['ctor_ms']:.4f} and {k3['dist_ctor_ms']:.4f} ms, "
+          f"max_abs_err {k3['ctor_max_abs_err']} and "
+          f"{k3['dist_ctor_max_abs_err']}, ties {k3['ctor_ties']} and "
+          f"{k3['dist_ctor_ties']}", flush=True)
     del tok, start
 
     tok, trained, dist = main_path_distance(lines)
@@ -1007,6 +1131,7 @@ def main() -> None:
           f"{k4d['row_err_over_tol']:.3g} gram_gap_over_bound "
           f"{k4d['gram_gap_over_bound']:.3g}", flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
+    print(json.dumps({"computed": computed}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -72,6 +72,27 @@ __device__ __forceinline__ void ldcg8(const float* base, const int (&i)[8],
       : "memory");
 }
 
+// Four loads through L2 from each of two rows, a[i[u]] and b[i[u]], sent
+// back to back in one asm statement (as ldcg8).
+__device__ __forceinline__ void ldcg_pair4(const float* a, const float* b,
+                                           const int (&i)[4], float (&x)[4],
+                                           float (&y)[4]) {
+  asm volatile(
+      "ld.global.cg.f32 %0, [%8];\n\t"
+      "ld.global.cg.f32 %1, [%9];\n\t"
+      "ld.global.cg.f32 %2, [%10];\n\t"
+      "ld.global.cg.f32 %3, [%11];\n\t"
+      "ld.global.cg.f32 %4, [%12];\n\t"
+      "ld.global.cg.f32 %5, [%13];\n\t"
+      "ld.global.cg.f32 %6, [%14];\n\t"
+      "ld.global.cg.f32 %7, [%15];"
+      : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3]), "=f"(y[0]),
+        "=f"(y[1]), "=f"(y[2]), "=f"(y[3])
+      : "l"(a + i[0]), "l"(a + i[1]), "l"(a + i[2]), "l"(a + i[3]),
+        "l"(b + i[0]), "l"(b + i[1]), "l"(b + i[2]), "l"(b + i[3])
+      : "memory");
+}
+
 // Rows are owned by the blocks of a cooperative grid in chunks of
 // kOwnChunk rows: chunk c by block c % g.
 constexpr int kOwnChunk = 32;
@@ -105,17 +126,18 @@ __device__ inline void grid_barrier(unsigned* arrived, unsigned n_blocks) {
 // HYPTOK_MARK(k) makes thread 0 of block 0 add the SM cycles since its
 // previous mark to phase k of `hyptok_profile` (k = -1 only restarts the
 // clock), read back and zeroed by hyptok_profile_read; in the kernels' own
-// build it is empty.
+// build it is empty. A mark costs a clock read, a shared-memory word and
+// one reduction sent to global memory without waiting for it.
 #ifdef HYPTOK_PROFILE
 constexpr int kProfilePhases = 16;
 __device__ unsigned long long hyptok_profile[kProfilePhases];
-__device__ unsigned long long hyptok_profile_last;
 
 __device__ __forceinline__ void profile_mark(int k) {
+  __shared__ unsigned long long last;
   if (threadIdx.x == 0 && blockIdx.x == 0) {
     const unsigned long long now = clock64();
-    if (k >= 0) hyptok_profile[k] += now - hyptok_profile_last;
-    hyptok_profile_last = now;
+    if (k >= 0) atomicAdd(&hyptok_profile[k], now - last);
+    last = now;
   }
 }
 #define HYPTOK_MARK(k) hyptok::profile_mark(k)

@@ -4,9 +4,10 @@
 // Replace the TPU kernel hyptokenizer_tpu/ops/pallas/enhanced_loop.py:156
 // (`_kernel`), reached there through `_run_segment` and `_run_chunk_fused`,
 // in its two configurations: K1 is the corpus-only one (use_dense=False,
-// `enhanced_loop_launch`), K2 the dense one (use_dense=True,
-// `enhanced_loop_dense_launch`). Both are instances of one template
-// (kDense). Semantics are those of the plain version,
+// `enhanced_loop_launch`, `corpus_loop_kernel`), K2 the dense one
+// (use_dense=True, `enhanced_loop_dense_launch`, `dense_loop_kernel`); they
+// share the merge, the halt check and the loop scalars. Semantics are those
+// of the plain version,
 // hyptokenizer_tpu_torch/tokenizer/enhanced_state.py `enhanced_step`,
 // looped to the same halt conditions:
 //
@@ -31,10 +32,37 @@
 // step budget and the next curvature event (`curv_stop`); the corpus sync
 // and the curvature Adam step run in PyTorch between launches.
 //
-// Design. K1 is one thread block, looping over the steps; the state stays
-// in device memory (served from L2) and the loop scalars in shared memory.
-// The batch's arrays live in dynamic shared memory sized by merge_batch.
-// The warps take the applied merges of a batch by warp stride, one merge
+// Design. K1 is one thread block of 1024 threads in two roles. Its choice
+// of merges depends only on the queues and the threshold, and within a
+// launch no queue entry names a token made in it (the queues come from the
+// last sync), so the merges leave the step's critical path: 16 queue warps
+// run the steps, and post each applied merge to a ring in shared memory
+// that 16 merge warps drain, merge m on warp m % 16 (one merge a warp: both
+// rows' first 128 coordinates and the pair's features in one round of
+// loads). For the launch K1 keeps the phase queues in dynamic shared memory
+// beside the ring: as many whole phases (16 B an entry) as
+// enhanced_loop.smem_plan lets fit, from the launch's phase on (all three
+// at 4096 entries and batch 16), the others read in global memory; q_score
+// goes back at the end. At the launch it notes which phases repeat the
+// launch phase entry for entry (the flagship's three queues are one queue
+// three times) and indexes the launch phase's live entries by pair. A step
+// of the queue warps, three barriers of their own: each warp counts the
+// valid entries of its span of the phase's queue with a ballot a round (32
+// consecutive entries); every warp scans the 16 warps' counts itself, so
+// every thread knows the ranks, the resync flag and the batch size; the
+// thread holding the entry of rank t posts it as merge `posted + t` and
+// consumes it at once in the launch phase and the phases that repeat it
+// (when the index found no pair held twice); the other phases, and the
+// launch phase when the step selects elsewhere or a pair is held twice,
+// are consumed after the batch is posted by a scan that compares an entry
+// only with the merge owning its filter slot (the whole batch where two
+// merges share it), a phase that repeats one taking its hits. One
+// thread updates the loop scalars and takes the next step's halt check.
+// The rows, features and history stay in device memory (L2).
+// K2's block 0 runs the earlier form of the step (global queues, a block
+// scan, a serial batch build) with the dense candidate in it. The batch's
+// arrays live in dynamic shared memory sized by merge_batch. The warps
+// take the applied merges of a batch by warp stride, one merge
 // at a time (the midpoint needs only the pre-batch rows, and a batch never
 // refers to a token made in the same batch). The dense candidate's
 // coherence stages its midpoint in chunks of kMidChunk coordinates and
@@ -68,7 +96,8 @@
 // Bound. K1: a serial chain of merge_batch-sized steps, each touching a few
 // K-entry queues and at most 2*nb+nb embedding rows: it moves far too few
 // bytes to be bandwidth-bound and is bound by the latency of its serial
-// steps (block barriers and dependent global reads). K2, read once, adds
+// steps (the queue warps' barriers and shared-memory scans; the merges'
+// round of row loads through L2 runs beside them). K2, read once, adds
 // the active rows (vocab x d1 x 4 B, about 20 MB at 49k rows and d+1 =
 // 101) and the candidates; its fold needs 2 d1 + 8 FLOP per active row per
 // merge, about 10 MFLOP per merge at 49k rows (0.15 us at 67 TFLOP/s).
@@ -167,17 +196,8 @@ struct Geodesic {
   bool degenerate;
 };
 
-__device__ Geodesic geodesic(const Params& p, int lane, int ci, int cj) {
-  const float* xi = p.emb + (size_t)ci * p.d1;
-  const float* xj = p.emb + (size_t)cj * p.d1;
-  float dot = 0.0f;
-  for (int e = lane; e < p.d1; e += 32) {
-    const float t = xi[e] * xj[e];
-    dot += (e == 0) ? t : -t;
-  }
-  dot = warp_sum_float(dot);
-  const int li = p.lengths[ci];
-  const int lj = p.lengths[cj];
+// From the pair's Minkowski dot (summed over the warp) and token lengths.
+__device__ Geodesic geodesic_coeffs(float dot, int li, int lj) {
   const float w = (float)lj / (float)max(li + lj, 1);
   const float d = acosh_log(fmaxf(dot, 1.0f + kAcoshEps));
   const float a = (1.0f - w) * d;
@@ -188,6 +208,18 @@ __device__ Geodesic geodesic(const Params& p, int lane, int ci, int cj) {
   g.den = fmaxf(1.0f - expf(-2.0f * d), kEpsNorm);
   g.degenerate = d < kExpZeroTol;
   return g;
+}
+
+__device__ Geodesic geodesic(const Params& p, int lane, int ci, int cj) {
+  const float* xi = p.emb + (size_t)ci * p.d1;
+  const float* xj = p.emb + (size_t)cj * p.d1;
+  float dot = 0.0f;
+  for (int e = lane; e < p.d1; e += 32) {
+    const float t = xi[e] * xj[e];
+    dot += (e == 0) ? t : -t;
+  }
+  dot = warp_sum_float(dot);
+  return geodesic_coeffs(dot, p.lengths[ci], p.lengths[cj]);
 }
 
 // hash(a + b) from hash(a), hash(b) and the byte length of b
@@ -201,30 +233,148 @@ __device__ void compose_hash(const Params& p, int ci, int cj, int* h1,
 }
 
 // One warp merges the pair (ci, cj), at distance `dist`, into row `slot`.
+// Its loads go out in one round: the first 128 coordinates of both rows
+// (four of each per lane, ldcg_pair4) and the pair's ten feature words on
+// lanes 0-9 (lengths, byte lengths, hashes, vowel flags); only the hash
+// powers wait for the byte length, read from `pow_cache` (the first
+// n_cache powers of both residues, in shared memory) when it holds them.
+// Each lane sums its coordinates in increasing order, as a plain loop
+// would.
 __device__ void merge_one(const Params& p, int lane, int ci, int cj,
-                          int slot, int hist, float dist, float c) {
-  const float* xi = p.emb + (size_t)ci * p.d1;
-  const float* xj = p.emb + (size_t)cj * p.d1;
-  const Geodesic g = geodesic(p, lane, ci, cj);
-  float* out = p.emb + (size_t)slot * p.d1;
+                          int slot, int hist, float dist, float c,
+                          const int* pow_cache, int n_cache) {
+  const int d1 = p.d1;
+  const float* xi = p.emb + (size_t)ci * d1;
+  const float* xj = p.emb + (size_t)cj * d1;
+  int feat = 0;
+  if (lane < 8) {
+    const int* src = lane < 2 ? p.lengths : lane < 4 ? p.byte_lengths
+                                                     : p.token_hash;
+    const int row = (lane < 4 ? (lane & 1) : (lane & 2)) ? cj : ci;
+    feat = __ldcg(src + (lane < 4 ? row : 2 * row + (lane & 1)));
+  } else if (lane < 10) {
+    feat = __ldcg(p.has_vowel + (lane == 8 ? ci : cj));
+  }
+  int at[4];
+  float x[4], y[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) at[u] = min(lane + 32 * u, d1 - 1);
+  ldcg_pair4(xi, xj, at, x, y);
+  float dot = 0.0f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = lane + 32 * u;
+    if (e < d1) {
+      const float t = x[u] * y[u];
+      dot += (e == 0) ? t : -t;
+    }
+  }
+  for (int e = lane + 128; e < d1; e += 32) {
+    const float t = __ldcg(xi + e) * __ldcg(xj + e);
+    dot -= t;
+  }
+  dot = warp_sum_float(dot);
+  const int li = __shfl_sync(kFull, feat, 0);
+  const int lj = __shfl_sync(kFull, feat, 1);
+  const int bi = __shfl_sync(kFull, feat, 2);
+  const int bj = __shfl_sync(kFull, feat, 3);
+  int pw = 0;
+  if (lane < 2) {
+    const int at = min(bj, p.max_hash_len - 1);
+    pw = at < n_cache ? pow_cache[lane * n_cache + at]
+                      : __ldcg(p.powers + lane * p.max_hash_len + at);
+  }
+  const Geodesic g = geodesic_coeffs(dot, li, lj);
+  float* out = p.emb + (size_t)slot * d1;
   float sq = 0.0f;
-  for (int e = lane; e < p.d1; e += 32) {
-    if (e == 0) continue;
-    const float v = g.degenerate ? xi[e]
-                                 : (g.num_x * xi[e] + g.num_y * xj[e]) / g.den;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = lane + 32 * u;
+    if (e < d1 && e != 0) {
+      const float v =
+          g.degenerate ? x[u] : (g.num_x * x[u] + g.num_y * y[u]) / g.den;
+      out[e] = v;
+      sq += v * v;
+    }
+  }
+  for (int e = lane + 128; e < d1; e += 32) {
+    const float a = __ldcg(xi + e);
+    const float v =
+        g.degenerate ? a : (g.num_x * a + g.num_y * __ldcg(xj + e)) / g.den;
     out[e] = v;
     sq += v * v;
   }
   sq = warp_sum_float(sq);
+  const int hi1 = __shfl_sync(kFull, feat, 4);
+  const int hi2 = __shfl_sync(kFull, feat, 5);
+  const int hj1 = __shfl_sync(kFull, feat, 6);
+  const int hj2 = __shfl_sync(kFull, feat, 7);
+  const int vowel = __shfl_sync(kFull, feat, 8) | __shfl_sync(kFull, feat, 9);
+  const int p1 = __shfl_sync(kFull, pw, 0);
+  const int p2 = __shfl_sync(kFull, pw, 1);
   if (lane != 0) return;
   out[0] = sqrtf(1.0f + c * sq);
-  p.lengths[slot] = p.lengths[ci] + p.lengths[cj];
+  p.lengths[slot] = li + lj;
   p.merges[2 * hist] = ci;
   p.merges[2 * hist + 1] = cj;
   p.merge_dists[hist] = dist;
-  compose_hash(p, ci, cj, &p.token_hash[2 * slot], &p.token_hash[2 * slot + 1]);
-  p.byte_lengths[slot] = p.byte_lengths[ci] + p.byte_lengths[cj];
-  p.has_vowel[slot] = (p.has_vowel[ci] | p.has_vowel[cj]) ? 1 : 0;
+  p.token_hash[2 * slot] = (hi1 * p1 + hj1) % kHashP1;
+  p.token_hash[2 * slot + 1] = (hi2 * p2 + hj2) % kHashP2;
+  p.byte_lengths[slot] = bi + bj;
+  p.has_vowel[slot] = vowel ? 1 : 0;
+}
+
+// The halt check at a step's top, and the phase (and its threshold) of the
+// hierarchical curriculum; one thread.
+__device__ void step_head(const Params& p, int* s_i, float* s_f,
+                          int* s_halt) {
+  const int nm = s_i[S_NM];
+  const int halt = s_i[S_STOPPED] | s_i[S_RESYNC] |
+                   (nm >= s_i[S_M_BUDGET]) |
+                   (s_i[S_STEP] >= s_i[S_S_BUDGET]) |
+                   (nm >= s_i[S_CURV_STOP]);
+  *s_halt = halt;
+  if (!halt && p.use_hier) {
+    const int phase = 1 + (nm >= p.phase2) + (nm >= p.phase3);
+    if (phase != s_i[S_PHASE]) s_f[F_THR] = p.phase_thr[phase - 1];
+    s_i[S_PHASE] = phase;
+  }
+}
+
+// The loop scalars after a step that flagged a resync or applied n_apply
+// merges: counters, empty rounds, threshold growth, the full-vocabulary
+// stop; one thread.
+__device__ void step_scalars(const Params& p, int* s_i, float* s_f,
+                             bool need_rs, int n_apply) {
+  float thr2 = s_f[F_THR];
+  if (need_rs) {
+    s_i[S_RESYNC] = 1;
+  } else {
+    const int nm0 = s_i[S_NM];
+    s_i[S_VOCAB] += n_apply;
+    s_i[S_NM] += n_apply;
+    if (n_apply > 0) {
+      s_i[S_EMPTY] = 0;
+    } else {
+      const int empty = s_i[S_EMPTY] + 1;
+      if (p.adaptive) {
+        const bool grow = empty >= p.empty_after;
+        thr2 = fminf(grow ? thr2 * p.empty_growth : thr2, kThresholdCap);
+        s_i[S_EMPTY] = grow ? 0 : empty;
+      } else {
+        s_i[S_EMPTY] = empty;
+        s_i[S_STOPPED] = empty >= p.empty_stop;
+      }
+    }
+    s_i[S_STEP] += 1;
+    if (p.adaptive && p.growth_every > 0) {
+      const bool grow = (s_i[S_NM] / p.growth_every) > (nm0 / p.growth_every);
+      thr2 = fminf(grow ? thr2 * p.growth : thr2, kThresholdCap);
+    }
+  }
+  if (p.adaptive && p.growth_every > 0) thr2 = fminf(thr2, kThresholdCap);
+  s_f[F_THR] = thr2;
+  if (s_i[S_VOCAB] >= p.max_v) s_i[S_STOPPED] = 1;
 }
 
 // Count of the pair (hi, lo) in the lexicographically sorted pair table, 0
@@ -528,36 +678,35 @@ __device__ void follow(const Params& p, int vocab, float sqrt_c,
   }
 }
 
-// Bytes of the batch arrays in dynamic shared memory for a queue batch nb:
+// Bytes of K2's batch arrays in dynamic shared memory for a queue batch nb:
 // the selected queue entries (nb) and the applied merges (nb + 1, with the
 // dense candidate): rows i, j, distance, new length.
 inline int batch_smem_bytes(int nb) { return (nb + 4 * (nb + 1)) * 4; }
 
-template <bool kDense>
+// K2: the dense configuration's segment (see the note at the top).
 __global__ void __launch_bounds__(kThreads, 1)
-enhanced_loop_kernel(Params p) {
+dense_loop_kernel(Params p) {
   __shared__ int s_i[S_COUNT];
   __shared__ float s_f[F_COUNT];
   __shared__ int s_scan[kWarps];
-  __shared__ int s_live[kWarps];
   extern __shared__ int s_dyn[];
   int* s_sel = s_dyn;                    // (nb,)
   int* s_ci = s_sel + p.nb;              // (nb + 1,)
   int* s_cj = s_ci + p.nb + 1;           // (nb + 1,)
   float* s_cd = reinterpret_cast<float*>(s_cj + p.nb + 1);  // (nb + 1,)
   int* s_nlen = reinterpret_cast<int*>(s_cd + p.nb + 1);    // (nb + 1,)
-  __shared__ int s_halt, s_need_rs, s_n_apply, s_n_valid, s_n_live;
-  // K2: the dense candidate, its coherence terms and the fold's new rows.
+  __shared__ int s_halt, s_need_rs, s_n_apply, s_n_valid;
+  // The dense candidate, its coherence terms and the fold's new rows.
   __shared__ float s_red_f[kWarps];
   __shared__ int s_red_i[kWarps];
-  __shared__ float s_mid[kDense ? kMidChunk : 1];
-  __shared__ float s_coh[kDense ? kSampleBlock : 1];
-  __shared__ float s_new[kDense ? kNewFloats : 1];
+  __shared__ float s_mid[kMidChunk];
+  __shared__ float s_coh[kSampleBlock];
+  __shared__ float s_new[kNewFloats];
   __shared__ float s_geo[3];
   __shared__ int s_degen;
   __shared__ int s_di, s_dj, s_dvalid;
   __shared__ float s_dd, s_dscore;
-  __shared__ int s_ev[kDense ? 3 : 1];
+  __shared__ int s_ev[3];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -565,42 +714,26 @@ enhanced_loop_kernel(Params p) {
   if (tid < S_COUNT) s_i[tid] = p.si[tid];
   if (tid < F_COUNT) s_f[tid] = p.sf[tid];
   __syncthreads();
-  // K2 is a cooperative grid: block 0 runs the steps, the other blocks
-  // fold their rows on its events (`follow`). K1 is one block.
+  // A cooperative grid: block 0 runs the steps, the other blocks fold
+  // their rows on its events (`follow`).
   const float sqrt_c = sqrtf(s_f[F_C]);
-  const int n_blocks = kDense ? gridDim.x : 1;
-  unsigned expect = 0;     // K2: events the other blocks must have finished
-  int seq = 0;             // K2: block 0's last event
-  if constexpr (kDense) {
-    if (blockIdx.x != 0) {
-      follow(p, s_i[S_VOCAB], sqrt_c, s_new, s_nlen, s_red_f, s_red_i,
-             s_ev);
-      return;
-    }
-    first_partial(p, s_i[S_VOCAB], 0, n_blocks, s_red_f, s_red_i);
-    expect = n_blocks - 1;
+  const int n_blocks = gridDim.x;
+  if (blockIdx.x != 0) {
+    follow(p, s_i[S_VOCAB], sqrt_c, s_new, s_nlen, s_red_f, s_red_i, s_ev);
+    return;
   }
+  first_partial(p, s_i[S_VOCAB], 0, n_blocks, s_red_f, s_red_i);
+  unsigned expect = n_blocks - 1;  // events the other blocks must finish
+  int seq = 0;                     // block 0's last event
 
   const int per = (p.k + kThreads - 1) / kThreads;
   const int lo = min(tid * per, p.k);
   const int hi = min(lo + per, p.k);
-  const bool corpus = !kDense || p.needs_corpus;
+  const bool corpus = p.needs_corpus;
 
   HYPTOK_MARK(-1);
   for (int s = 0; s < p.n_steps; ++s) {
-    if (tid == 0) {
-      const int nm = s_i[S_NM];
-      const int halt = s_i[S_STOPPED] | s_i[S_RESYNC] |
-                       (nm >= s_i[S_M_BUDGET]) |
-                       (s_i[S_STEP] >= s_i[S_S_BUDGET]) |
-                       (nm >= s_i[S_CURV_STOP]);
-      s_halt = halt;
-      if (!halt && p.use_hier) {
-        const int phase = 1 + (nm >= p.phase2) + (nm >= p.phase3);
-        if (phase != s_i[S_PHASE]) s_f[F_THR] = p.phase_thr[phase - 1];
-        s_i[S_PHASE] = phase;
-      }
-    }
+    if (tid == 0) step_head(p, s_i, s_f, &s_halt);
     __syncthreads();
     if (s_halt) break;
     HYPTOK_MARK(0);
@@ -615,7 +748,7 @@ enhanced_loop_kernel(Params p) {
     int di = 0;
     int dj = 0;
     bool dvalid = false;
-    if constexpr (kDense) {
+    {
       // The dense candidate: argmin of best_dist over the active rows,
       // lowest index on ties, from the blocks' partials over their rows
       // (written by the last fold, read through L2).
@@ -784,12 +917,9 @@ enhanced_loop_kernel(Params p) {
     // over contiguous runs of the queue, so ranks follow queue order.
     if (corpus) {
       int my_valid = 0;
-      int my_live = 0;
       for (int e = lo; e < hi; ++e) {
-        const bool live = qs[e] > -INFINITY;
-        bool ok = live && (qd[e] < thr);
-        if (kDense && dvalid) ok = ok && !(qi[e] == di && qj[e] == dj);
-        my_live += live;
+        bool ok = qs[e] > -INFINITY && qd[e] < thr;
+        if (dvalid) ok = ok && !(qi[e] == di && qj[e] == dj);
         my_valid += ok;
       }
       int incl = my_valid;
@@ -797,9 +927,7 @@ enhanced_loop_kernel(Params p) {
         const int v = __shfl_up_sync(kFull, incl, o);
         if (lane >= o) incl += v;
       }
-      const int live_w = warp_sum_int(my_live);
       if (lane == 31) s_scan[warp] = incl;
-      if (lane == 0) s_live[warp] = live_w;
       __syncthreads();
       if (warp == 0) {
         const int v = s_scan[lane];
@@ -808,17 +936,15 @@ enhanced_loop_kernel(Params p) {
           const int u = __shfl_up_sync(kFull, inc, o);
           if (lane >= o) inc += u;
         }
-        const int live_all = warp_sum_int(s_live[lane]);
         __syncwarp();
         s_scan[lane] = inc - v;
         if (lane == 31) s_n_valid = inc;
-        if (lane == 0) s_n_live = live_all;
       }
       __syncthreads();
       int rank = s_scan[warp] + incl - my_valid;
       for (int e = lo; e < hi && rank < p.nb; ++e) {
         bool ok = qs[e] > -INFINITY && qd[e] < thr;
-        if (kDense && dvalid) ok = ok && !(qi[e] == di && qj[e] == dj);
+        if (dvalid) ok = ok && !(qi[e] == di && qj[e] == dj);
         if (ok) {
           s_sel[rank] = e;
           ++rank;
@@ -831,16 +957,15 @@ enhanced_loop_kernel(Params p) {
     if (tid == 0) {
       const int n_valid = corpus ? s_n_valid : 0;
       const bool consumed_any = s_i[S_NM] > s_i[S_SYNCED];
-      bool need_rs =
+      // (A fully consumed queue needs no resync here: the dense channel
+      // still has candidates.)
+      const bool need_rs =
           corpus && s_i[S_QV0 + pidx] > p.k && consumed_any && n_valid < p.nb;
-      // Corpus-only mode: a fully consumed queue waits for a sync. (K2 has
-      // the dense channel whenever it has a corpus.)
-      if (!kDense) need_rs = need_rs || (s_n_live == 0 && consumed_any);
       const int n_taken = min(n_valid, p.nb);
       // The dense candidate goes in at its rank among the taken entries,
       // ahead of entries with an equal score.
       int at = n_taken + 1;
-      if (kDense && dvalid) {
+      if (dvalid) {
         at = 0;
         for (int t = 0; t < n_taken; ++t) at += qs[s_sel[t]] > s_dscore;
       }
@@ -870,9 +995,9 @@ enhanced_loop_kernel(Params p) {
     // One warp per merge, by warp stride over the batch.
     for (int t = warp; t < n_apply; t += kWarps) {
       merge_one(p, lane, s_ci[t], s_cj[t], s_i[S_VOCAB] + t, s_i[S_NM] + t,
-                s_cd[t], s_f[F_C]);
+                s_cd[t], s_f[F_C], nullptr, 0);
     }
-    if (kDense) {
+    {
       // Invalidate row ci iff its tracked best was just consumed (best_j
       // is the pre-batch one: the grid's fold runs after barrier A).
       for (int t = tid; t < n_apply; t += kThreads) {
@@ -897,61 +1022,426 @@ enhanced_loop_kernel(Params p) {
     __syncthreads();
     HYPTOK_MARK(5);
 
-    if (tid == 0) {
-      float thr2 = s_f[F_THR];
-      if (s_need_rs) {
-        s_i[S_RESYNC] = 1;
-      } else {
-        const int nm0 = s_i[S_NM];
-        s_i[S_VOCAB] += n_apply;
-        s_i[S_NM] += n_apply;
-        if (n_apply > 0) {
-          s_i[S_EMPTY] = 0;
-        } else {
-          const int empty = s_i[S_EMPTY] + 1;
-          if (p.adaptive) {
-            const bool grow = empty >= p.empty_after;
-            thr2 = fminf(grow ? thr2 * p.empty_growth : thr2, kThresholdCap);
-            s_i[S_EMPTY] = grow ? 0 : empty;
-          } else {
-            s_i[S_EMPTY] = empty;
-            s_i[S_STOPPED] = empty >= p.empty_stop;
-          }
-        }
-        s_i[S_STEP] += 1;
-        if (p.adaptive && p.growth_every > 0) {
-          const bool grow =
-              (s_i[S_NM] / p.growth_every) > (nm0 / p.growth_every);
-          thr2 = fminf(grow ? thr2 * p.growth : thr2, kThresholdCap);
-        }
-      }
-      if (p.adaptive && p.growth_every > 0) thr2 = fminf(thr2, kThresholdCap);
-      s_f[F_THR] = thr2;
-      if (s_i[S_VOCAB] >= p.max_v) s_i[S_STOPPED] = 1;
-    }
+    if (tid == 0) step_scalars(p, s_i, s_f, s_need_rs, n_apply);
     __syncthreads();
 
-    if constexpr (kDense) {
-      // The fold: every block on its own rows (block 0 publishes the
-      // event; the next step's candidate waits for the others to finish).
-      HYPTOK_MARK(6);
-      if (n_apply > 0) {
-        publish_event(p, ++seq, 0, vocab0, n_apply);
-        expect += n_blocks - 1;
-        dense_fold(p, vocab0, n_apply, sqrt_c, 0, n_blocks, s_new, s_nlen,
-                   s_red_f, s_red_i);
-      }
+    // The fold: every block on its own rows (block 0 publishes the event;
+    // the next step's candidate waits for the others to finish).
+    HYPTOK_MARK(6);
+    if (n_apply > 0) {
+      publish_event(p, ++seq, 0, vocab0, n_apply);
+      expect += n_blocks - 1;
+      dense_fold(p, vocab0, n_apply, sqrt_c, 0, n_blocks, s_new, s_nlen,
+                 s_red_f, s_red_i);
     }
     HYPTOK_MARK(10);
   }
 
-  if constexpr (kDense) {
-    // The other blocks stop after the last fold.
-    wait_done(p, expect);
-    publish_event(p, ++seq, 1, 0, 0);
+  // The other blocks stop after the last fold.
+  wait_done(p, expect);
+  publish_event(p, ++seq, 1, 0, 0);
+  if (tid < S_COUNT) p.si[tid] = s_i[tid];
+  if (tid < F_COUNT) p.sf[tid] = s_f[tid];
+}
+
+// K1: the corpus-only configuration's segment, one block.
+constexpr int kOwnerSlots = 1024;    // the batch's pair filter
+constexpr int kIndexSlots = 8192;    // the launch phase's pair index
+constexpr unsigned short kNoEntry = 0xFFFF;
+constexpr int kPowCache = 64;              // hash powers kept on chip
+
+// Hash of the ordered pair (a, b); its top bits pick a slot (the low bits
+// of a product see only the low bits of the ids).
+__device__ __forceinline__ unsigned pair_hash(int a, int b) {
+  return (unsigned)a * 0x9E3779B1u ^ (unsigned)b * 0x85EBCA77u;
+}
+
+// Slot of the ordered pair (a, b) in the batch's pair filter.
+__device__ __forceinline__ unsigned pair_slot(int a, int b) {
+  return pair_hash(a, b) >> 22;
+}
+
+// First slot of the ordered pair (a, b) in the launch phase's pair index.
+__device__ __forceinline__ unsigned index_slot(int a, int b) {
+  return pair_hash(a, b) >> 19;
+}
+
+// One phase's queue: held in shared memory for the launch, as (q_i, q_j)
+// and (q_dist, q_score) pairs, or read in its global arrays.
+struct Queue {
+  const int2* ij;  // resident pairs, or null
+  float2* ds;      // resident (dist, score), or null
+  const int* qi;   // the global arrays
+  const int* qj;
+  const float* qd;
+  float* qs;
+};
+
+__device__ __forceinline__ int2 q_pair(const Queue& q, int e) {
+  return q.ij ? q.ij[e] : make_int2(q.qi[e], q.qj[e]);
+}
+
+__device__ __forceinline__ float2 q_dist_score(const Queue& q, int e) {
+  return q.ds ? q.ds[e] : make_float2(q.qd[e], q.qs[e]);
+}
+
+__device__ __forceinline__ void q_consume(const Queue& q, int e) {
+  if (q.ds) {
+    q.ds[e].y = -INFINITY;
+  } else {
+    q.qs[e] = -INFINITY;
+  }
+}
+
+// Phase `ph`'s queue: resident slot (ph - p0) mod 3 when below n_res (the
+// launch holds phases p0, p0 + 1, ... in that order, each k pairs then k
+// (dist, score)), else global memory.
+__device__ __forceinline__ Queue queue_of(const Params& p, int2* s_q,
+                                          int n_res, int p0, int ph) {
+  const size_t o = (size_t)ph * p.k;
+  Queue q = {nullptr,     nullptr,     p.q_i + o,
+             p.q_j + o,   p.q_dist + o, p.q_score + o};
+  const int r = (ph - p0 + 3) % 3;
+  if (r < n_res) {
+    q.ij = s_q + (size_t)r * 2 * p.k;
+    q.ds = reinterpret_cast<float2*>(s_q + (size_t)r * 2 * p.k + p.k);
+  }
+  return q;
+}
+
+// The block's roles: the first kQueueWarps warps run the steps (queue
+// scan, batch, consumption, scalars) with a named barrier of their own;
+// the other warps merge, each merge m by warp kQueueWarps + m % kMergeWarps,
+// from a ring of the applied merges in shared memory.
+constexpr int kQueueWarps = 16;
+constexpr int kQueueThreads = 32 * kQueueWarps;
+constexpr int kMergeWarps = kWarps - kQueueWarps;
+constexpr int kQueueBarrier = 1;
+
+__device__ __forceinline__ void queue_sync() {
+  asm volatile("bar.sync %0, %1;" ::"n"(kQueueBarrier), "n"(kQueueThreads)
+               : "memory");
+}
+
+__device__ __forceinline__ int vload(const int* x) {
+  return *(const volatile int*)x;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+corpus_loop_kernel(Params p, int n_res, int ring) {
+  __shared__ int s_i[S_COUNT];
+  __shared__ float s_f[F_COUNT];
+  __shared__ int s_scan[kQueueWarps];
+  __shared__ int s_live[kQueueWarps];
+  // Slot -> the applied merge (its rank in the step's batch) whose pair
+  // has it, -1 for none, -2 for two or more (then the batch is compared):
+  // the consumption scan's filter.
+  __shared__ int s_owner[kOwnerSlots];
+  // The launch phase's live entries by pair, open addressing with linear
+  // probing (entry index, kNoEntry for an empty slot), when k is at most
+  // half the slots: it finds a pair held twice. When none is (s_dup
+  // clear), a step that selects from that phase consumes it, and every
+  // phase that mirrors it, at the selected entries' own indices.
+  __shared__ unsigned short s_index[kIndexSlots];
+  __shared__ int s_dup;
+  __shared__ int s_halt;
+  __shared__ int s_pow[2 * kPowCache];
+  // Phase -> the phase whose queue pairs it repeats entry for entry (its
+  // own index when none): its consumption copies that phase's hits.
+  __shared__ int s_mirror[3];
+  // The ring: merges posted by the queue warps, merges done by each merge
+  // warp, and the queue warps' end.
+  __shared__ int s_posted;
+  __shared__ int s_done[kMergeWarps];
+  __shared__ int s_finished;
+  extern __shared__ int2 s_dyn2[];
+  int* r_ci = reinterpret_cast<int*>(s_dyn2);  // (ring,) merge m at m % ring
+  int* r_cj = r_ci + ring;
+  float* r_cd = reinterpret_cast<float*>(r_cj + ring);
+  // The resident queues, 8-byte aligned after the ring.
+  int2* s_q = s_dyn2 + (3 * ring + 1) / 2;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int k = p.k;
+  HYPTOK_MARK(-1);
+  if (tid < S_COUNT) s_i[tid] = p.si[tid];
+  if (tid < F_COUNT) s_f[tid] = p.sf[tid];
+  for (int w = tid; w < kOwnerSlots; w += kThreads) s_owner[w] = -1;
+  for (int w = tid; w < kIndexSlots; w += kThreads) s_index[w] = kNoEntry;
+  if (tid < kMergeWarps) s_done[tid] = 0;
+  if (tid == 0) {
+    s_posted = 0;
+    s_finished = 0;
+    s_dup = 0;
+  }
+  const int n_pow = min(kPowCache, p.max_hash_len);
+  if (tid < 2 * n_pow) {
+    s_pow[tid] = __ldcg(p.powers + (tid / n_pow) * p.max_hash_len +
+                        tid % n_pow);
+  }
+  // Stage the resident phases: the launch's phase first.
+  const int p0 = min(max(p.si[S_PHASE] - 1, 0), 2);
+  for (int r = 0; r < n_res; ++r) {
+    const size_t o = (size_t)((p0 + r) % 3) * k;
+    int2* ij = s_q + (size_t)r * 2 * k;
+    float2* ds = reinterpret_cast<float2*>(ij + k);
+#pragma unroll 4
+    for (int e = tid; e < k; e += kThreads) {
+      ij[e] = make_int2(__ldcg(p.q_i + o + e), __ldcg(p.q_j + o + e));
+      ds[e] = make_float2(__ldcg(p.q_dist + o + e), __ldcg(p.q_score + o + e));
+    }
+  }
+  // A phase whose pairs and live entries equal the launch phase's, entry
+  // for entry, takes its consumption from that phase's (the flagship's
+  // three queues are one queue three times).
+  __syncthreads();
+  const Queue q0 = queue_of(p, s_q, n_res, p0, p0);
+  for (int ph = 0; ph < 3; ++ph) {
+    bool same = true;
+    if (ph != p0) {
+      const Queue v = queue_of(p, s_q, n_res, p0, ph);
+      for (int e = tid; e < k; e += kThreads) {
+        const int2 x = q_pair(q0, e);
+        const int2 y = q_pair(v, e);
+        same = same && x.x == y.x && x.y == y.y &&
+               (q_dist_score(q0, e).y > -INFINITY) ==
+                   (q_dist_score(v, e).y > -INFINITY);
+      }
+    }
+    same = __syncthreads_and(same);
+    if (tid == 0) s_mirror[ph] = same ? p0 : ph;
+  }
+  const bool indexed = 2 * k <= kIndexSlots;
+  if (indexed) {
+    // Index the launch phase's live entries (a dead or unstored entry
+    // needs no consuming).
+    for (int e = tid; e < k; e += kThreads) {
+      if (!(q_dist_score(q0, e).y > -INFINITY)) continue;
+      const int2 pr = q_pair(q0, e);
+      unsigned short old;
+      for (unsigned h = index_slot(pr.x, pr.y);
+           (old = atomicCAS(&s_index[h], kNoEntry, (unsigned short)e)) !=
+           kNoEntry;
+           h = (h + 1) & (kIndexSlots - 1)) {
+        const int2 o = q_pair(q0, old);
+        if (o.x == pr.x && o.y == pr.y) s_dup = 1;
+      }
+    }
+  }
+  __syncthreads();
+  const bool unique = indexed && !s_dup;
+  const float c = s_f[F_C];
+  // Merge m makes row vocab_start + m and history entry nm_start + m.
+  const int vocab_start = s_i[S_VOCAB];
+  const int nm_start = s_i[S_NM];
+
+  if (warp >= kQueueWarps) {
+    // A merge warp: its merges in order, each once the queue warps have
+    // posted it; a count of the done ones frees their ring entries.
+    const int j = warp - kQueueWarps;
+    for (int m = j, n = 0;; m += kMergeWarps, ++n) {
+      int posted = 0;
+      if (lane == 0) {
+        for (;;) {
+          posted = vload(&s_posted);
+          if (m < posted) break;
+          if (vload(&s_finished)) {
+            posted = vload(&s_posted);
+            break;
+          }
+          __nanosleep(20);
+        }
+      }
+      posted = __shfl_sync(kFull, posted, 0);
+      if (m >= posted) break;
+      __threadfence_block();
+      const int at = m % ring;
+      merge_one(p, lane, r_ci[at], r_cj[at], vocab_start + m, nm_start + m,
+                r_cd[at], c, s_pow, n_pow);
+      __syncwarp();
+      if (lane == 0) {
+        __threadfence_block();
+        *(volatile int*)&s_done[j] = n + 1;
+      }
+    }
+    return;
+  }
+
+  // The queue warps: the steps. Each warp scans a contiguous span of the
+  // queue, 32 entries a round.
+  if (tid == kQueueThreads - 32 && p.n_steps > 0) {
+    step_head(p, s_i, s_f, &s_halt);
+  }
+  const int rounds = (k + kQueueThreads - 1) / kQueueThreads;
+  const int span0 = warp * 32 * rounds;
+  const unsigned below = (1u << lane) - 1u;  // lanes before this one
+  int posted = 0;      // merges posted before this step
+  int prev_apply = 0;  // the last step's batch
+
+  HYPTOK_MARK(11);
+  for (int s = 0; s < p.n_steps; ++s) {
+    // The last step's consumption and scalars are done.
+    queue_sync();
+    if (s_halt) break;
+    HYPTOK_MARK(0);
+    const int pidx = min(max(s_i[S_PHASE] - 1, 0), 2);
+    const float thr = s_f[F_THR];
+    const int vocab0 = s_i[S_VOCAB];
+    const bool consumed_any = s_i[S_NM] > s_i[S_SYNCED];
+    const bool truncated = s_i[S_QV0 + pidx] > k;
+    const Queue q = queue_of(p, s_q, n_res, p0, pidx);
+    // The step's batch consumes the launch phase and its mirrors at the
+    // selected entries themselves.
+    const bool direct = unique && s_mirror[pidx] == p0;
+    // Free the last batch's slots (its pairs are still in the ring).
+    for (int t = tid; t < prev_apply; t += kQueueThreads) {
+      const int at = (posted - prev_apply + t) % ring;
+      s_owner[pair_slot(r_ci[at], r_cj[at])] = -1;
+    }
+
+    // Count the valid entries and note any live one: a ballot a round, so
+    // ranks follow queue order (warp, round, lane).
+    int w_valid = 0;
+    bool w_live = false;
+    for (int i0 = 0; i0 < rounds; i0 += 4) {
+      float2 ds[4];  // four rounds' loads first; past the end, dead
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = span0 + 32 * (i0 + u) + lane;
+        ds[u] = i0 + u < rounds && e < k ? q_dist_score(q, e)
+                                         : make_float2(INFINITY, -INFINITY);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool live = ds[u].y > -INFINITY;
+        w_valid += __popc(__ballot_sync(kFull, live && ds[u].x < thr));
+        w_live |= __any_sync(kFull, live);
+      }
+    }
+    if (lane == 0) {
+      s_scan[warp] = w_valid;
+      s_live[warp] = w_live;
+    }
+    queue_sync();
+    HYPTOK_MARK(3);
+    // Every warp scans the warps' counts itself.
+    const int wv = lane < kQueueWarps ? s_scan[lane] : 0;
+    int winc = wv;
+    for (int o = 1; o < kQueueWarps; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, winc, o);
+      if (lane >= o) winc += v;
+    }
+    const int n_valid = __shfl_sync(kFull, winc, kQueueWarps - 1);
+    const bool any_live =
+        __any_sync(kFull, lane < kQueueWarps && s_live[lane] != 0);
+    const int before = __shfl_sync(kFull, winc - wv, warp);
+    // A truncated queue that cannot fill a batch, or a fully consumed
+    // queue, waits for a sync.
+    const bool need_rs = consumed_any &&
+                         ((truncated && n_valid < p.nb) || !any_live);
+    const int n_taken = min(n_valid, p.nb);
+    const int n_apply = need_rs ? 0 : max(0, min(n_taken, p.max_v - vocab0));
+    // The threads holding ranks below n_apply post their entries as merges
+    // posted + rank (once the merge ring * ring entries earlier is done),
+    // and each pair into its slot.
+    for (int i = 0, r0 = before; i < rounds && r0 < n_apply; ++i) {
+      const int e = span0 + 32 * i + lane;
+      bool valid = false;
+      if (e < k) {
+        const float2 ds = q_dist_score(q, e);
+        valid = ds.y > -INFINITY && ds.x < thr;
+      }
+      const unsigned m = __ballot_sync(kFull, valid);
+      const int r = r0 + __popc(m & below);
+      if (valid && r < n_apply) {
+        const int mi = posted + r;
+        if (mi >= ring) {
+          const int* done = &s_done[mi % kMergeWarps];
+          while (vload(done) <= (mi - ring) / kMergeWarps) __nanosleep(20);
+        }
+        const int2 pr = q_pair(q, e);
+        const int at = mi % ring;
+        r_ci[at] = pr.x;
+        r_cj[at] = pr.y;
+        r_cd[at] = q_dist_score(q, e).x;
+        const unsigned slot = pair_slot(pr.x, pr.y);
+        if (atomicCAS(&s_owner[slot], -1, r) != -1) s_owner[slot] = -2;
+        for (int ph = 0; direct && ph < 3; ++ph) {
+          if (s_mirror[ph] == p0) q_consume(queue_of(p, s_q, n_res, p0, ph), e);
+        }
+      }
+      r0 += __popc(m);
+    }
+    queue_sync();
+    HYPTOK_MARK(4);
+    if (tid == 0 && n_apply > 0) {
+      __threadfence_block();
+      *(volatile int*)&s_posted = posted + n_apply;
+    }
+
+    if (n_apply > 0) {
+      // Consume every applied ordered pair in the phase queues not consumed
+      // at posting: an entry is compared with the merge that owns its
+      // slot, or with the whole batch where two share it; a mirrored phase
+      // takes the hits of the phase it repeats. Four entries a thread at a
+      // time, their loads first.
+      for (int ph = 0; ph < 3; ++ph) {
+        if (s_mirror[ph] != ph || (direct && ph == p0)) continue;
+        const Queue v = queue_of(p, s_q, n_res, p0, ph);
+        for (int e0 = tid; e0 < k; e0 += 4 * kQueueThreads) {
+          int2 pr[4];
+          int o[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kQueueThreads;
+            pr[u] = e < k ? q_pair(v, e) : make_int2(-1, -1);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            o[u] = s_owner[pair_slot(pr[u].x, pr[u].y)];
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = e0 + u * kQueueThreads;
+            if (o[u] == -1 || e >= k) continue;
+            bool hit = false;
+            for (int t = o[u] >= 0 ? o[u] : 0;
+                 t < (o[u] >= 0 ? o[u] + 1 : n_apply) && !hit; ++t) {
+              const int at = (posted + t) % ring;
+              hit = pr[u].x == r_ci[at] && pr[u].y == r_cj[at];
+            }
+            if (!hit) continue;
+            for (int m = 0; m < 3; ++m) {
+              if (s_mirror[m] == ph) {
+                q_consume(queue_of(p, s_q, n_res, p0, m), e);
+              }
+            }
+          }
+        }
+      }
+    }
+    HYPTOK_MARK(5);
+    if (tid == kQueueThreads - 32) {
+      step_scalars(p, s_i, s_f, need_rs, n_apply);
+      if (s + 1 < p.n_steps) step_head(p, s_i, s_f, &s_halt);
+    }
+    posted += n_apply;
+    prev_apply = n_apply;
+    HYPTOK_MARK(10);
+  }
+  queue_sync();
+  if (tid == 0) *(volatile int*)&s_finished = 1;
+  for (int r = 0; r < n_res; ++r) {
+    const size_t o = (size_t)((p0 + r) % 3) * k;
+    const float2* ds =
+        reinterpret_cast<const float2*>(s_q + (size_t)r * 2 * k + k);
+    for (int e = tid; e < k; e += kQueueThreads) p.q_score[o + e] = ds[e].y;
   }
   if (tid < S_COUNT) p.si[tid] = s_i[tid];
   if (tid < F_COUNT) p.sf[tid] = s_f[tid];
+  HYPTOK_MARK(12);
 }
 
 Params base_params(void* emb, void* lengths, void* byte_lengths,
@@ -999,10 +1489,9 @@ Params base_params(void* emb, void* lengths, void* byte_lengths,
   return p;
 }
 
-// Allow the batch arrays of `nb` in dynamic shared memory for an instance.
-template <bool kDense>
+// Allow K2's batch arrays for a queue batch nb in dynamic shared memory.
 cudaError_t allow_batch(int nb) {
-  return cudaFuncSetAttribute(enhanced_loop_kernel<kDense>,
+  return cudaFuncSetAttribute(dense_loop_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               batch_smem_bytes(nb));
 }
@@ -1016,17 +1505,27 @@ extern "C" int enhanced_loop_launch(
     int d1, int k, int nb, int n_steps, int max_hash_len, int use_hier,
     int phase2, int phase3, float thr1, float thr2, float thr3, int adaptive,
     int growth_every, float growth, int empty_after, float empty_growth,
-    int empty_stop, void* stream) {
-  if (nb < 1 || nb > kMaxBatch) return (int)cudaErrorInvalidValue;
+    int empty_stop, int n_resident, int ring, void* stream) {
+  if (nb < 1 || nb > kMaxBatch || k < 1 || n_resident < 0 ||
+      n_resident > 3 || ring < 2 * nb || ring % kMergeWarps != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Params p = base_params(
       emb, lengths, byte_lengths, has_vowel, token_hash, merges, merge_dists,
       q_i, q_j, q_dist, q_score, powers, si, sf, max_v, d1, k, nb, n_steps,
       max_hash_len, use_hier, phase2, phase3, thr1, thr2, thr3, adaptive,
       growth_every, growth, empty_after, empty_growth, empty_stop);
-  cudaError_t err = allow_batch<false>(nb);
+  // The ring (pairs and distances), padded to 8 bytes, then the resident
+  // phases (enhanced_loop.smem_plan).
+  const size_t smem = ((size_t)ring * 12 + 7) / 8 * 8 +
+                      (size_t)n_resident * 4 * k * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      corpus_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  enhanced_loop_kernel<false><<<1, kThreads, batch_smem_bytes(nb),
-                                static_cast<cudaStream_t>(stream)>>>(p);
+  corpus_loop_kernel<<<1, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(p, n_resident,
+                                                            ring);
   return (int)cudaGetLastError();
 }
 
@@ -1042,10 +1541,10 @@ extern "C" int enhanced_loop_dense_grid(int nb) {
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  if (err == cudaSuccess) err = allow_batch<true>(nb);
+  if (err == cudaSuccess) err = allow_batch(nb);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, enhanced_loop_kernel<true>, kThreads, batch_smem_bytes(nb));
+        &per_sm, dense_loop_kernel, kThreads, batch_smem_bytes(nb));
   }
   if (err != cudaSuccess) return -(int)err;
   return per_sm * sms;
@@ -1104,11 +1603,11 @@ extern "C" int enhanced_loop_dense_launch(
   p.part_i = static_cast<int*>(part_i);
   p.event = static_cast<int*>(event);
   p.done = static_cast<unsigned*>(done);
-  cudaError_t err = allow_batch<true>(nb);
+  cudaError_t err = allow_batch(nb);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(
-      (const void*)enhanced_loop_kernel<true>, dim3(grid), dim3(kThreads),
+      (const void*)dense_loop_kernel, dim3(grid), dim3(kThreads),
       args, (size_t)batch_smem_bytes(nb), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

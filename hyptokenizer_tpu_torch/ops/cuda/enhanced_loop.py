@@ -13,9 +13,10 @@ looped to the same halt conditions by :func:`run_segment_plain`.
 :func:`run_segment` launches the configuration's kernel for a state on the
 card and runs the plain version for a state on the CPU; for a CUDA state it
 launches or raises, never falls back. ``launches`` counts K1's launches,
-``dense_launches`` K2's. K1 is one thread block; K2 is a cooperative grid
-(:func:`dense_grid_size`) whose block 0 runs the steps and whose blocks
-fold their own rows.
+``dense_launches`` K2's. K1 is one thread block that keeps the phase queues
+in shared memory for the launch (:func:`smem_plan`); K2 is a cooperative
+grid (:func:`dense_grid_size`) whose block 0 runs the steps and whose
+blocks fold their own rows.
 
 :func:`run_chunk` is the segment relaunch loop: one corpus sync, then
 segments that halt at every adaptive-curvature event, with the curvature
@@ -40,6 +41,11 @@ SOURCE = "enhanced_loop"
 MAX_BATCH = 8192        # the batch's arrays fill shared memory beyond this
 SEGMENT_STEPS = 1024    # steps per launch (the JAX package's segment_grid)
 NO_CURVATURE_STOP = 1 << 30
+SMEM_LIMIT = 232_448    # shared memory a block may use on sm_90 (227 KB)
+SMEM_RESERVE = 22_528   # kept for K1's static shared memory (pair tables)
+PHASE_ENTRY_BYTES = 16  # q_i, q_j, q_dist and q_score of one queue entry
+MERGE_WARPS = 16        # K1's merge warps (csrc kMergeWarps)
+MIN_RING = 512          # fewest merges K1's ring holds
 
 launches = 0            # K1 launches since the last reset_launches()
 dense_launches = 0      # K2 launches since the last reset_launches()
@@ -57,6 +63,34 @@ def uses_dense(config) -> bool:
     return config.use_dense_channel or not config.needs_corpus
 
 
+@dataclasses.dataclass(frozen=True)
+class SmemPlan:
+    """What K1 keeps in dynamic shared memory for a launch."""
+
+    ring: int         # merges the ring holds (pair and distance, 12 B each)
+    resident: int     # phase queues held on chip (0-3), from the launch's
+                      # phase on; the others are read in global memory
+    bytes: int        # dynamic shared memory per block
+
+
+def smem_plan(queue_size: int, merge_batch: int) -> SmemPlan:
+    """The shared-memory plan of K1: the ring of posted merges (at least
+    two batches and ``MIN_RING`` merges, in whole rounds of its
+    ``MERGE_WARPS`` merge warps), then, 8-byte aligned, as many whole phase
+    queues (``PHASE_ENTRY_BYTES`` per entry) as fit beside it. At the
+    flagship's 4096 entries and batch 16 all three fit (196,608 B); what
+    does not fit stays in global memory, so any ``queue_size`` and any
+    ``merge_batch`` up to ``MAX_BATCH`` run."""
+    nb = max(1, merge_batch)
+    ring = -(-max(2 * nb, MIN_RING) // MERGE_WARPS) * MERGE_WARPS
+    ring_bytes = -(-ring * 12 // 8) * 8
+    room = max(SMEM_LIMIT - SMEM_RESERVE - ring_bytes, 0)
+    per_phase = PHASE_ENTRY_BYTES * max(1, queue_size)
+    resident = min(3, room // per_phase)
+    return SmemPlan(ring=ring, resident=resident,
+                    bytes=ring_bytes + resident * per_phase)
+
+
 def _launcher(dense: bool):
     lib = _build.load(SOURCE)
     fn = lib.enhanced_loop_dense_launch if dense else lib.enhanced_loop_launch
@@ -65,6 +99,8 @@ def _launcher(dense: bool):
         args = [ptr] * 14 + [i] * 9 + [f] * 3 + [i, i, f, i, f, i]
         if dense:
             args += [ptr] * 7 + [i] * 8 + [f] * 5 + [i] + [ptr] * 4
+        else:
+            args += [i, i]                   # resident phase queues, ring
         fn.argtypes = args + [ptr]
         fn.restype = ctypes.c_int
         lib.enhanced_loop_dense_grid.argtypes = [ctypes.c_int]
@@ -167,7 +203,8 @@ def run_segment_cuda(st, config, m_budget: int, s_budget: int,
     sf = torch.stack([base.threshold, base.curvature]).float().contiguous()
     b = config.base
     thr = config.phase_thresholds
-    extra = []
+    plan = smem_plan(config.queue_size, config.merge_batch)
+    extra = [plan.resident, plan.ring]
     if dense:
         extra = [
             base.best_dist.data_ptr(), base.best_j.data_ptr(),

@@ -1,8 +1,9 @@
-"""The bound counts of the port's kernels and K4's shared-memory plan,
-pure Python on worked cases (no card): ``merge_loop.chunk_bytes``,
-``chunk_ops`` and ``smem_plan``, ``enhanced_loop.segment_bytes`` and
-``segment_ops``, each input byte read once and each output byte written
-once; the padding that holds K2 at depth
+"""The bound counts of the port's kernels and their launch plans, pure
+Python on worked cases (no card): ``merge_loop.chunk_bytes``,
+``chunk_ops`` and ``smem_plan``, ``enhanced_loop.segment_bytes``,
+``segment_ops`` and K1's ``smem_plan``, ``pairwise.tile_plan`` (K3's
+tensor-core tiles, padding and scratch), each input byte read once and each
+output byte written once; the padding that holds K2 at depth
 (``selfcheck.pad_dense_state``); and the K2/K4 wrappers' refusal of CPU
 states."""
 
@@ -173,3 +174,75 @@ def test_cuda_wrappers_refuse_cpu_states():
     tok = dense_tokenizer("cpu")
     with pytest.raises(ValueError, match="CUDA"):
         K12.run_segment_cuda(tok.enh_state, tok.enh_config, 10, 10, 10)
+
+
+@pytest.mark.parametrize("queue_size,nb,ring,resident", [
+    (4096, 16, 512, 3),       # the flagship: every phase queue on chip
+    (4096, 2048, 4096, 2),    # a large batch's ring leaves room for two
+    (8192, 16, 512, 1),
+    (16384, 16, 512, 0),      # one phase alone outgrows shared memory
+    (8192, 8192, 16384, 0),
+    (128, 4, 512, 3),
+    (4096, 300, 608, 3),      # two batches, in whole rounds of 16 warps
+    (4096, 1024, 2048, 2),    # ranks past 512
+])
+def test_k1_smem_plan(queue_size, nb, ring, resident):
+    plan = K12.smem_plan(queue_size, nb)
+    assert (plan.ring, plan.resident) == (ring, resident)
+    assert plan.ring >= 2 * nb and plan.ring % K12.MERGE_WARPS == 0
+    ring_bytes = -(-ring * 12 // 8) * 8
+    assert plan.bytes == ring_bytes + resident * 16 * queue_size
+    assert plan.bytes <= K12.SMEM_LIMIT - K12.SMEM_RESERVE
+    if resident < 3:     # one more phase would not fit
+        assert plan.bytes + 16 * queue_size > \
+            K12.SMEM_LIMIT - K12.SMEM_RESERVE
+
+
+def test_k1_smem_plan_flagship_by_hand():
+    # A ring of 512 merges at 12 B (6,144 B), then three phases of 4096
+    # entries at 16 B (196,608 B).
+    plan = K12.smem_plan(4096, 16)
+    assert plan.bytes == 6_144 + 196_608 == 202_752
+
+
+@pytest.mark.parametrize("vocab,d1,rows,depth,col_tiles", [
+    (127, 101, 128, 104, 2), (128, 101, 128, 104, 2),
+    (129, 9, 256, 16, 3), (257, 8, 384, 8, 5), (1, 8, 128, 8, 1),
+    (50_176, 101, 50_176, 104, 784), (4096, 101, 4096, 104, 64),
+])
+def test_k3_tile_plan_padding(vocab, d1, rows, depth, col_tiles):
+    plan = K3.tile_plan(vocab, d1, 132)
+    assert (plan.rows, plan.depth, plan.col_tiles) == (rows, depth, col_tiles)
+    assert plan.row_tiles == rows // 128 and plan.tensor_cores
+    # hi and lo: rows x depth floats each; a 64-bit key per row; a counter.
+    assert plan.scratch_bytes == 2 * rows * depth * 4 + rows * 8 + 4
+    # A 128-row tile and two stages of a 64-column tile, hi and lo.
+    assert plan.smem_bytes == 2 * (128 + 2 * 64) * depth * 4 <= 232_448
+
+
+@pytest.mark.parametrize("vocab,n_sms", [(50_176, 132), (4096, 132),
+                                          (300, 132), (1000, 7)])
+def test_k3_tile_plan_covers_the_upper_triangle(vocab, n_sms):
+    """Each row tile rt meets column tiles 2 rt .. col_tiles - 1 exactly
+    once, in items of at most ``chunk`` tiles, largest first."""
+    plan = K3.tile_plan(vocab, 101, n_sms)
+    seen = {}
+    for rt, c0, c1 in plan.items:
+        assert 0 < c1 - c0 <= plan.chunk
+        seen.setdefault(rt, []).extend(range(c0, c1))
+    for rt in range(plan.row_tiles):
+        want = list(range(2 * rt, plan.col_tiles))
+        assert sorted(seen.get(rt, [])) == want
+    sizes = [c1 - c0 for _, c0, c1 in plan.items]
+    assert sizes == sorted(sizes, reverse=True)
+
+
+def test_k3_tile_plan_full_width_by_hand():
+    # 392 row tiles against 784 column tiles: 154,056 tile pairs over
+    # 4 x 132 items gives chunks of 292; 50,176 x 104 floats of hi and of
+    # lo (41,746,432 B), 401,408 B of keys and the counter.
+    plan = K3.tile_plan(50_176, 101, 132)
+    assert plan.chunk == 292 and len(plan.items) == 738
+    assert plan.scratch_bytes == 41_746_432 + 401_408 + 4
+    assert plan.smem_bytes == 212_992
+    assert not K3.tile_plan(50_176, 129, 132).tensor_cores   # depth 136

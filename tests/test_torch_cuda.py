@@ -80,9 +80,12 @@ class NumpySampler:
         return self._draw((sample_size,), n), self._draw((sample_size,), n - 1)
 
 
-def small_tokenizer(device, d=8, sigma=0.6, **kw):
+def small_tokenizer(device, d=8, sigma=0.6, n_extra=0, **kw):
+    """The corpus's characters (and ``n_extra`` tokens the corpus never
+    uses, for queues filled by hand) at random points."""
     chars = sorted({ch for line in CORPUS for ch in line})
-    vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + chars
+    vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + chars + \
+        [f"x{i}" for i in range(n_extra)]
     gen = torch.Generator(device="cpu")
     gen.manual_seed(0)
     emb = L.random_points(gen, len(vocab), d, sigma=sigma, device="cpu")
@@ -141,6 +144,125 @@ def test_segment_matches_plain(cuda, kw):
     assert_segments_match(sk, sp)
 
 
+# K1's shared-memory plans (enhanced_loop.smem_plan): all three phase
+# queues resident, one or two of them, none; batches of 1 and 8192; and a
+# phase switch inside the segment with the later phases resident or global.
+K1_PLAN_CASES = {
+    "resident-256": (dict(queue_size=256), 3),
+    "resident-4096": (dict(queue_size=4096, freq_table_size=4096), 3),
+    "partial-batch2048": (dict(queue_size=4096, freq_table_size=4096,
+                               merge_batch=2048), 2),
+    "partial-8192": (dict(queue_size=8192, freq_table_size=8192), 1),
+    "global-16384": (dict(queue_size=16384, freq_table_size=16384), 0),
+    "batch1": (dict(queue_size=4096, freq_table_size=4096, merge_batch=1),
+               3),
+    "batch8192": (dict(merge_batch=8192), 0),
+    "phases-resident": (dict(use_hierarchical=True,
+                             use_compression_aware=True), 3),
+    "phases-partial": (dict(queue_size=8192, freq_table_size=8192,
+                            use_hierarchical=True,
+                            use_compression_aware=True), 1),
+    "phases-batch1024": (dict(queue_size=4096, freq_table_size=4096,
+                              merge_batch=1024, use_hierarchical=True,
+                              use_compression_aware=True), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_PLAN_CASES))
+def test_k1_queue_plans_match_plain(cuda, case):
+    """One K1 segment against its plain version with all, part or none of
+    the phase queues in shared memory; the hierarchical cases switch phase
+    twice inside the segment."""
+    kw, resident = K1_PLAN_CASES[case]
+    tok = small_tokenizer(cuda, use_adaptive_curvature=False, **kw)
+    cfg = tok.enh_config
+    if cfg.use_hierarchical:
+        cfg = dataclasses.replace(cfg, phase2_step=6, phase3_step=14)
+    assert K1.smem_plan(cfg.queue_size, cfg.merge_batch).resident == resident
+    st0 = E.sync_corpus(tok.enh_state, cfg, tok.sampler)
+    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
+    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    assert int(sk.base.num_merges) >= 16
+    if cfg.use_hierarchical:
+        assert int(sp.phase) == 3 and int(st0.phase) == 1
+    assert_segments_match(sk, sp)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(use_hierarchical=True,
+                                         use_compression_aware=True)])
+def test_k1_duplicate_queue_pairs_match_plain(cuda, kw):
+    """A queue holding one pair twice (entry 1 a copy of entry 0, in every
+    phase): K1 finds the duplicate when it indexes the launch phase and
+    consumes both copies, as the plain version does."""
+    tok = small_tokenizer(cuda, use_adaptive_curvature=False, **kw)
+    cfg = tok.enh_config
+    st0 = E.sync_corpus(tok.enh_state, cfg, tok.sampler)
+    for q in (st0.q_i, st0.q_j, st0.q_dist, st0.q_score):
+        q[:, 1] = q[:, 0]
+    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
+    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    assert int(sk.base.num_merges) >= 16
+    assert_segments_match(sk, sp)
+
+
+def test_k1_copy_dead_in_one_phase_matches_plain(cuda):
+    """Entry 1 a copy of entry 0 in every phase, but dead in the launch
+    phase alone: the phases' pairs agree entry for entry while their live
+    entries do not, and the copy left live in the other two phases is
+    consumed with entry 0, as the plain version does."""
+    tok = small_tokenizer(cuda, use_adaptive_curvature=False)
+    cfg = tok.enh_config
+    st0 = E.sync_corpus(tok.enh_state, cfg, tok.sampler)
+    for q in (st0.q_i, st0.q_j, st0.q_dist, st0.q_score):
+        q[:, 1] = q[:, 0]
+    st0.q_score[0, 1] = -float("inf")
+    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
+    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    assert int(sk.base.num_merges) >= 16
+    assert_segments_match(sk, sp)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_k1_large_batches_match_plain(cuda, dup):
+    """Batches of 1024 merges from queues of 4096 distinct pairs filled by
+    hand, each phase a permutation of the others, with the phase switching
+    twice inside the segment (and, with ``dup``, entry 1 of every phase a
+    copy of entry 0): every applied pair, of any rank, is consumed in all
+    three phases, as the plain version does."""
+    tok = small_tokenizer(cuda, n_extra=96, use_adaptive_curvature=False,
+                          max_vocab_size=4096, queue_size=4096,
+                          freq_table_size=4096, merge_batch=1024,
+                          use_hierarchical=True, use_compression_aware=True)
+    cfg = dataclasses.replace(tok.enh_config, phase2_step=1000,
+                              phase3_step=2500)
+    st0 = E.sync_corpus(tok.enh_state, cfg, tok.sampler)
+    v0, k = int(st0.base.vocab_size), cfg.queue_size
+    rng = np.random.default_rng(3)
+    flat = rng.choice(v0 * v0, size=k, replace=False)
+    thr = min(cfg.phase_thresholds)
+    for ph in range(3):
+        pairs = flat[rng.permutation(k)]
+        score = np.sort(rng.uniform(0.0, 1.0, k))[::-1].copy()
+        score[rng.random(k) < 0.1] = -np.inf
+        st0.q_i[ph] = torch.from_numpy((pairs // v0).astype(np.int32))
+        st0.q_j[ph] = torch.from_numpy((pairs % v0).astype(np.int32))
+        st0.q_dist[ph] = torch.from_numpy(
+            rng.uniform(0.0, 0.8 * thr, k).astype(np.float32))
+        st0.q_score[ph] = torch.from_numpy(score.astype(np.float32))
+    if dup:
+        for q in (st0.q_i, st0.q_j, st0.q_dist, st0.q_score):
+            q[:, 1] = q[:, 0]
+    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
+    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    assert int(sp.base.num_merges) > 3 * 1024
+    assert int(sp.phase) == 3 and int(st0.phase) == 1
+    assert_segments_match(sk, sp)
+
+
 def test_training_matches_cpu(cuda):
     """Whole chunks (syncs, curvature events, resyncs, relaunches) on the
     card equal the same chunks on the CPU's plain path."""
@@ -163,10 +285,15 @@ def test_wrapper_checks_inputs(cuda):
         K1.run_segment_cuda(tok.enh_state, tok.enh_config, 10, 10, 10)
 
 
-# Sizes that cross the 64-row tile edges and the diagonal tile.
+# Sizes that cross the 64-row tile edges and the diagonal tile, the
+# tensor-core path's 128-row tiles, 64-column tiles and depth padding
+# (d+1 = 8, 9, 101 -> 104, 112), many work items (2000 rows), and the FFMA
+# kernel past the tensor-core depth (d+1 = 128, 129, 301).
 @pytest.mark.parametrize("max_v,vocab,d1", [
     (64, 1, 8), (64, 63, 8), (130, 64, 8), (130, 65, 101), (300, 257, 101),
-    (520, 520, 128), (300, 257, 129), (520, 300, 301)])
+    (520, 520, 128), (300, 257, 129), (520, 300, 301), (127, 127, 8),
+    (128, 128, 9), (129, 129, 101), (257, 257, 101), (300, 129, 9),
+    (400, 383, 112), (2048, 2000, 101)])
 def test_k3_matches_plain(cuda, max_v, vocab, d1):
     gen = torch.Generator(device="cpu")
     gen.manual_seed(max_v + vocab)

@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
-"""Where a step of the port's kernels K4 and K2 spends its time, on one
+"""Where a step of the port's kernels K1, K2 and K4 spends its time, on one
 NVIDIA card.
 
-    python3 tools/torch_step_profile.py [--set NAME=VALUE ...]
+    python3 tools/torch_step_profile.py [--only k1,k2,k4] [--set NAME=VALUE ...]
 
 Builds ``csrc/merge_loop.cu`` and ``csrc/enhanced_loop.cu`` with
 ``-DHYPTOK_PROFILE`` (their ``HYPTOK_MARK`` phase marks then make thread 0
 of block 0 add SM cycles per phase, ``csrc/common.cuh``) into
 ``hyptokenizer_tpu_torch/_build/``, has the wrappers launch those builds,
 and times with CUDA events:
+
+* K1: first the corpus-only path of ``chip_smoke.py`` (two 2048-merge
+  chunks) with its regular build, each part of a chunk timed on the host
+  between ``torch.cuda.synchronize()`` calls: the library's load, the
+  corpus syncs, the K1 launches, the curvature steps, the host's merge
+  bookkeeping and the rest (the first chunk's first sync and first launch
+  apart); then, with the profile build, the smoke's K1 check segment (from
+  the trained state, synced) and K1's step floor from the same state
+  (``chip_smoke.k1_floor_state``: threshold 0, no step merges);
 
 * K4: a 4096-step chunk from 28,922 and from 45,056 random active rows in
   50,176 slots (``evals/selfcheck.base_state``, d=100, threshold 5), and
@@ -35,6 +44,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -46,6 +56,14 @@ sys.path.insert(0, ROOT)
 K4_PHASES = ["barrier", "reduce partials", "midpoint",
              "block's partial reduction", "scalars, publish",
              "owner write", "fold"]
+# K1's marks, those of its queue warps' thread 0 ("" where it sets none;
+# the merges run on the merge warps, outside these phases). In the
+# one-role kernel before the queue/merge split, phase 5 held the merges
+# and the consumption.
+K1_PHASES = ["step's top: halt check, wait for the step's end", "", "",
+             "queue scan", "batch", "consumption", "", "", "", "",
+             "scalars", "launch: staging, mirror check, pair index",
+             "launch: last step's end, write-back"]
 K2_PHASES = ["halt check", "wait for the grid's fold",
              "dense candidate and score", "queue scan", "batch",
              "merges, invalidation, consumption", "scalars",
@@ -98,11 +116,101 @@ def read_profile(name):
 
 
 def split(phases, cycles, steps, us_per_step):
-    total = sum(cycles[:len(phases)]) or 1
+    """Each phase's share of block 0's thread-0 cycles and its SM cycles per
+    step, spread over the event time per step. ``sm_mhz`` is the phases'
+    cycles over the event time: below the SM clock when the event time
+    holds more than the kernel (the host's part of a short launch)."""
+    total = sum(c for ph, c in zip(phases, cycles) if ph) or 1
     return {"us_per_step": us_per_step, "steps": steps,
+            "cycles_per_step": total / steps,
+            "sm_mhz": total / (us_per_step * steps),
             "phases": {ph: {"share": c / total,
+                            "cycles_per_step": c / steps,
                             "us_per_step": us_per_step * c / total}
-                       for ph, c in zip(phases, cycles)}}
+                       for ph, c in zip(phases, cycles) if ph}}
+
+
+def k1_first_use(lines):
+    """The corpus-only path's chunks split on the host: each part timed
+    between synchronizes, the rest of a chunk being its
+    ``chunk_seconds`` less its parts. Returns (tokenizer, split)."""
+    import chip_smoke as C
+    from hyptokenizer_tpu_torch.ops.cuda import _build
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    _build.build_all([K12.SOURCE])          # nvcc is not part of a chunk
+    parts = []                              # (chunk, part, seconds)
+    chunk = [0]
+
+    def timed(name, fn, ends_chunk=False):
+        def wrap(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts.append((chunk[0], name, time.perf_counter() - t0))
+            chunk[0] += ends_chunk
+            return out
+        return wrap
+
+    cls = EnhancedHyperbolicTokenizer
+    patches = [(_build, "load", "library load"),
+               (E, "sync_corpus", "corpus sync"),
+               (K12, "run_segment_cuda", "K1 launch"),
+               (E, "_maybe_update_curvature", "curvature step"),
+               (cls, "_sync_merges_from_device", "host merge bookkeeping")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, name in patches:
+        setattr(mod, attr, timed(name, getattr(mod, attr),
+                                 ends_chunk=attr == "_sync_merges_from_device"))
+    try:
+        tok, main = C.main_path(lines)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    out = {"ctor_s": main["ctor_s"], "chunks": []}
+    for k, secs in enumerate(main["chunk_seconds"]):
+        mine = [(name, s) for c, name, s in parts if c == k]
+        split_k = {"chunk_s": secs}
+        for name, s in mine:
+            first = k == 0 and name in ("corpus sync", "K1 launch") and \
+                f"first {name}" not in split_k
+            key = f"first {name}" if first else name
+            split_k[key] = split_k.get(key, 0.0) + s
+        split_k["calls"] = {name: sum(1 for n, _ in mine if n == name)
+                            for name in {n for n, _ in mine}}
+        split_k["rest"] = secs - sum(s for _, s in mine)
+        out["chunks"].append(split_k)
+    return tok, out
+
+
+def profile_k1(tok):
+    """K1's phases on the smoke's check segment and at its step floor."""
+    import chip_smoke as C
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    cfg = tok.enh_config
+    st0 = E.sync_corpus(E.clone_state(tok.enh_state), cfg,
+                        E.TorchSampler(1, "cuda"))
+    sc = E.state_scalars(st0)
+    freq = cfg.curvature_freq
+    budgets = (sc["num_merges"] + C.LOG_EVERY,
+               sc["step"] + C.LOG_EVERY + 1024,
+               (sc["curv_last"] // freq + 1) * freq)
+    out = {}
+    for label, (st, c, b) in (("k1_check_segment", (st0, cfg, budgets)),
+                              ("k1_floor", C.k1_floor_state(st0, cfg))):
+        read_profile("enhanced_loop")
+        ms, sk = C.time_k1_segment(st, c, b)
+        cyc = [x / 2 for x in read_profile("enhanced_loop")]
+        a, e = E.state_scalars(st), E.state_scalars(sk)
+        steps = e["step"] - a["step"]
+        out[label] = split(K1_PHASES, cyc, steps, ms * 1e3 / steps)
+        out[label]["merges"] = e["num_merges"] - a["num_merges"]
+        out[label]["ms"] = ms
+    return out
 
 
 def profile_k4():
@@ -174,16 +282,33 @@ def main():
         sys.exit(1)
     import chip_smoke as C
 
+    from hyptokenizer_tpu_torch.utils import data
+
     ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="k1,k2,k4",
+                    help="comma-separated kernels to profile")
     ap.add_argument("--set", action="append", default=[],
                     metavar="NAME=VALUE")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     overrides = dict(kv.split("=", 1) for kv in args.set)
     card = C.card_line()
+    result = {"overrides": overrides, "sm_clock": subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()}
+    tok = None
+    if "k1" in only:
+        tok, result["k1_first_use"] = k1_first_use(
+            data.read_corpus_lines(C.CORPUS))
     build_profiled(overrides)
-    result = {"overrides": overrides}
-    result.update(profile_k4())
-    result.update(profile_k2())
+    if tok is not None:
+        result.update(profile_k1(tok))
+        del tok
+    if "k4" in only:
+        result.update(profile_k4())
+    if "k2" in only:
+        result.update(profile_k2())
     print(card)
     print(json.dumps(result))
 
