@@ -56,10 +56,24 @@ Phases:
    padded to ``K2_DEPTH_ROWS`` active rows
    (``evals/selfcheck.pad_dense_state``; one segment timed, one held in
    lockstep);
-5. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
+5. the port's bench at full depth (``hyptokenizer_tpu_torch.bench``
+   ``run``): the corpus-only flagship and the all-features configuration
+   for their 50,000 merges, the bare distance-only loop with its trials,
+   then ``evals/selfcheck.kernel_selfcheck``. Each path has every launch
+   count reset just before it and read just after, and each kernel's
+   launches timed with CUDA events around its wrapper (event time: the
+   wrapper's host side included); the corpus-only path must end at the
+   bench's stop (its target vocabulary, or two chunks that merge
+   nothing), the all-features path at the 50,176-slot capacity, both
+   with their outputs checked as above (features, lossless encode, the
+   same ids after ``save``/``load``); every selfcheck verdict must be
+   "pass". Prints the bench's first-line JSON, its diagnostics and its
+   wall time;
+6. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
    and its bound at the fp32 rate outside the tensor cores: numbers
    computed from the shapes, not measured), a ``kernels`` JSON line
-   (measured, with each kernel's ``bound_ms``), the card line, and the
+   (measured, with each kernel's ``bound_ms`` and its launches and event
+   time on the full-depth paths, ``full_depth``), the card line, and the
    last line ``{"ok": true, "device": {...}}``, printed only when every
    phase passed.
 
@@ -117,25 +131,6 @@ H100_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 H100_TF32_FLOPS = 495e12     # H100 SXM TF32 tensor cores, dense
 TF32_PRODUCTS = 3            # TF32 products per fp32-accurate product
 
-# bench.py bench_enhanced (:114-124): the flagship corpus-only recipe.
-FLAGSHIP = dict(
-    max_vocab_size=50_176, merge_threshold=100.0,
-    alpha=0.05, beta=0.9, gamma=0.05,
-    use_hierarchical=False, use_compression_aware=False,
-    use_adaptive_curvature=True, optimize_curvature_freq=1000,
-    use_dense_channel=False, min_pair_freq=1, merge_batch=16,
-    corpus_max_tokens=2_900_000, merge_policy="priority", seed=0)
-
-# bench.py bench_allfeatures (:182-199): the all-features configuration,
-# no pre-split, the default "fixpoint" merge policy.
-ALL_FEATURES = dict(
-    max_vocab_size=50_176, merge_threshold=0.5,
-    use_frequency_aware=True, alpha=0.4, beta=0.4, gamma=0.2,
-    use_hierarchical=True, use_compression_aware=True,
-    use_adaptive_curvature=True, optimize_curvature_freq=100,
-    use_dense_channel=True, min_pair_freq=1, merge_batch=16,
-    corpus_max_tokens=2_900_000, freq_table_size=1 << 18, seed=0)
-
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -153,24 +148,22 @@ def card_line() -> str:
 
 
 def main_path(lines, device="cuda"):
-    """Construct the flagship tokenizer and train two chunks. Returns the
-    tokenizer and the phase's numbers."""
-    from hyptokenizer_tpu_torch.ops import lorentz as L
+    """Construct the flagship tokenizer (the bench's recipe,
+    ``bench.ENHANCED``) and train two chunks. Returns the tokenizer and
+    the phase's numbers."""
+    from hyptokenizer_tpu_torch import bench
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
     from hyptokenizer_tpu_torch.tokenizer import (
         WORDS_WITH_SPACE, EnhancedHyperbolicTokenizer, NormalizerConfig)
 
     dev = torch.device(device)
-    chars = sorted({ch for ln in lines for ch in ln})
-    vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + chars
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    emb = L.random_points(gen, len(vocab), 100, sigma=0.5, device=dev)
+    vocab, emb = bench.char_points(lines, dev)
 
     t0 = time.perf_counter()
     tok = EnhancedHyperbolicTokenizer(
         vocab, emb, device=dev, corpus_sample=lines,
-        normalizer=NormalizerConfig(pre_split=WORDS_WITH_SPACE), **FLAGSHIP)
+        normalizer=NormalizerConfig(pre_split=WORDS_WITH_SPACE),
+        **bench.ENHANCED)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     ctor_s = time.perf_counter() - t0
@@ -248,18 +241,14 @@ def main_path_all(lines, device="cuda"):
     train ``ALL_AFTER_LOAD`` more merges after load. Returns the tokenizer,
     the state the constructor built (for the K2 check) and the phase's
     numbers."""
-    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch import bench
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
     from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
     from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
     from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 
     dev = torch.device(device)
-    chars = sorted({ch for ln in lines for ch in ln})
-    vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + chars
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    emb = L.random_points(gen, len(vocab), 100, sigma=0.5, device=dev)
+    vocab, emb = bench.char_points(lines, dev)
 
     def sync():
         if dev.type == "cuda":
@@ -268,8 +257,8 @@ def main_path_all(lines, device="cuda"):
     K12.reset_launches()
     K3.reset_launches()
     t0 = time.perf_counter()
-    tok = EnhancedHyperbolicTokenizer(vocab, emb, device=dev,
-                                      corpus_sample=lines, **ALL_FEATURES)
+    tok = EnhancedHyperbolicTokenizer(
+        vocab, emb, device=dev, corpus_sample=lines, **bench.ALLFEATURES)
     sync()
     ctor_s = time.perf_counter() - t0
     start = E.clone_state(tok.enh_state)
@@ -968,6 +957,147 @@ def check_k4_depth():
         gram_gap_over_bound=out["k4d_gram_gap_over_bound"])
 
 
+class KernelTimer:
+    """CUDA events around each launch of the kernels' wrappers (K1/K2
+    ``enhanced_loop.run_segment_cuda``, K3 ``pairwise.pairwise_min_best``,
+    K4 ``merge_loop.run_merges_chunk``), with the loop's step counter before
+    and after, kept on the card until :meth:`collect`. The events bracket
+    the wrapper, so its host side counts where the card waits for it."""
+
+    def __init__(self):
+        from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+        from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+        from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+
+        self.marks = {}
+        self.patched = []
+
+        def wrap(mod, attr, name_of, step_of):
+            fn = getattr(mod, attr)
+
+            def timed(*args, **kw):
+                name = name_of(*args)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                s0 = step_of(args[0])
+                a.record()
+                out = fn(*args, **kw)
+                b.record()
+                s1 = step_of(out[0] if isinstance(out, tuple) else out)
+                self.marks.setdefault(name, []).append((a, b, s0, s1))
+                return out
+
+            setattr(mod, attr, timed)
+            self.patched.append((mod, attr, fn))
+
+        zero = torch.zeros((), dtype=torch.int32, device="cuda")
+        wrap(K12, "run_segment_cuda",
+             lambda st, cfg, *_: ("enhanced_loop_dense" if K12.uses_dense(cfg)
+                                  else "enhanced_loop"),
+             lambda st: st.base.step.clone())
+        wrap(K3, "pairwise_min_best", lambda *_: "pairwise_min_best",
+             lambda _: zero)
+        wrap(K4, "run_merges_chunk", lambda *_: "merge_loop",
+             lambda st: st.step.clone())
+
+    def collect(self) -> dict:
+        """Per kernel since the last call: launches, event ms summed, steps
+        and µs per step; then forget them."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, marks in self.marks.items():
+            ms = sum(a.elapsed_time(b) for a, b, _, _ in marks)
+            steps = int(sum(int(s1) - int(s0) for _, _, s0, s1 in marks))
+            out[name] = dict(launches=len(marks), event_ms=ms, steps=steps)
+            if steps:
+                out[name]["us_per_step"] = ms * 1e3 / steps
+        self.marks = {}
+        return out
+
+    def close(self) -> None:
+        for mod, attr, fn in self.patched:
+            setattr(mod, attr, fn)
+
+
+def bench_phase(lines):
+    """The port's bench (``hyptokenizer_tpu_torch/bench.py``) at its full
+    default depth, through its ``run``: each path with the launch counts
+    reset just before it and read just after, its kernels' launches timed,
+    and its outputs checked; then the selfcheck. Returns (the bench's
+    headline, its diagnostics, its record, the full-depth numbers per path
+    and kernel, the bench's wall seconds)."""
+    from hyptokenizer_tpu_torch import bench
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+
+    needs = {"enhanced": ("enhanced_loop",),
+             "allfeatures": ("enhanced_loop_dense", "pairwise_min_best"),
+             "distance_only": ("pairwise_min_best", "merge_loop")}
+    depth = {}
+    timer = KernelTimer()
+
+    def reset():
+        K12.reset_launches()
+        K3.reset_launches()
+        K4.reset_launches()
+
+    def after(name, rec, trained):
+        counts = {"enhanced_loop": K12.launches,
+                  "enhanced_loop_dense": K12.dense_launches,
+                  "pairwise_min_best": K3.launches,
+                  "merge_loop": K4.launches}
+        timed = timer.collect()
+        for kernel in needs[name]:
+            if counts[kernel] <= 0:
+                fail(f"the bench's {name} path never launched kernel "
+                     f"{kernel}")
+            if timed.get(kernel, {}).get("launches") != counts[kernel]:
+                fail(f"{kernel} on the bench's {name} path: "
+                     f"{counts[kernel]} launches counted, "
+                     f"{timed.get(kernel, {}).get('launches')} timed")
+        depth[name] = {k: dict(timed[k]) for k in needs[name]}
+        if name == "enhanced":
+            if rec["stop"] not in ("target", "no candidates"):
+                fail(f"the corpus-only bench ended by {rec['stop']} after "
+                     f"{rec['merges']} merges")
+            check_trained(trained, lines)
+        elif name == "allfeatures":
+            if rec["stop"] != "capacity" or rec["vocab"] != 50_176 or \
+                    rec["phase"] != 3:
+                fail(f"the all-features bench ended by {rec['stop']} at "
+                     f"vocab {rec['vocab']} in phase {rec['phase']}")
+            if not rec["curvature"] == rec["curvature"] or \
+                    rec["curvature"] == 1.0:
+                fail(f"all-features curvature {rec['curvature']}")
+            check_trained(trained, lines)
+        else:
+            v = int(trained.vocab_size)
+            if not rec["rate"] > 0 or int(trained.num_merges) <= 0 or \
+                    not bool(torch.isfinite(trained.emb[:v]).all()):
+                fail(f"the distance-only bench: {rec}")
+        depth[name]["merges"] = rec["merges"]
+        depth[name]["vocab"] = rec["vocab"]
+        depth[name]["memory"] = rec["memory"]
+        timer.collect()     # drop the checks' launches
+        reset()
+
+    reset()
+    t0 = time.perf_counter()
+    try:
+        head, diag, rec, failed = bench.run("cuda", lines=lines, after=after)
+    finally:
+        timer.close()
+    wall = time.perf_counter() - t0
+    if failed:
+        fail(f"kernel_selfcheck: {json.dumps(failed)}")
+    for key in ("value", "enhanced_allfeatures_merges_per_sec",
+                "distance_only_steps_per_sec"):
+        if not head[key] > 0:
+            fail(f"the bench's {key} is {head[key]}")
+    return head, diag, rec, depth, wall
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1130,6 +1260,27 @@ def main() -> None:
           f"{k4d['partner_ties']} row_err_over_tol "
           f"{k4d['row_err_over_tol']:.3g} gram_gap_over_bound "
           f"{k4d['gram_gap_over_bound']:.3g}", flush=True)
+    head, diag, rec, depth, bench_s = bench_phase(lines)
+    print(json.dumps(head), flush=True)
+    for ln in diag:
+        print(ln, flush=True)
+    enh, allf = rec["enhanced"], rec["allfeatures"]
+    print(f"bench: wall_s {bench_s:.1f} corpus-only {enh['merges']} merges "
+          f"(vocab {enh['vocab']}, stop {enh['stop']}), all-features "
+          f"{allf['merges']} merges (vocab {allf['vocab']}, stop "
+          f"{allf['stop']}, curvature {allf['curvature']:.6f}), "
+          f"distance-only {rec['distance_only']['steps']} steps; full "
+          f"depth {json.dumps(depth)}", flush=True)
+    k1["full_depth"] = depth["enhanced"]["enhanced_loop"]
+    k2["full_depth"] = depth["allfeatures"]["enhanced_loop_dense"]
+    k3["full_depth"] = {
+        "all_features": depth["allfeatures"]["pairwise_min_best"],
+        "distance_only": depth["distance_only"]["pairwise_min_best"]}
+    k4["full_depth"] = depth["distance_only"]["merge_loop"]
+    for k in (k1, k2, k3, k4):
+        fd = k["full_depth"]
+        k["launches_full_depth"] = (fd["launches"] if "launches" in fd else
+                                    sum(v["launches"] for v in fd.values()))
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

@@ -1,26 +1,33 @@
 """HypTokenizer in PyTorch and CUDA: the port of ``hyptokenizer_tpu``.
 
 The JAX package beside this one is the reference. This package imports
-torch, numpy and the standard library only; it never imports ``jax`` or
-``hyptokenizer_tpu``. Its tests hold each module to its JAX counterpart.
+torch, numpy and the standard library only (and the repo's ``native/``
+encoder through ctypes); it never imports ``jax`` or ``hyptokenizer_tpu``.
+Its tests hold each module to its JAX counterpart.
 
-Slices so far: corpus-only flagship training, and all-features training
-with the dense channel:
+Ported so far: corpus-only, all-features and distance-only training, the
+enhanced configurations, encoding, the geometry, the kernels' selfcheck,
+the bench and the device CLI:
 
-- ``ops.lorentz``           — hyperboloid geometry used by the merge loop
+- ``ops.lorentz``, ``ops.poincare`` — hyperbolic geometry
 - ``ops.cuda.enhanced_loop``— kernels K1 and K2, the scored merge segment
                               without and with the dense channel, in CUDA
 - ``ops.cuda.pairwise``     — kernel K3, the dense candidate pass, in CUDA
+- ``ops.cuda.merge_loop``   — kernel K4, the distance-only loop, in CUDA
 - ``tokenizer.scoring``     — hashes, corpus replay, pair table, top-k
 - ``tokenizer.search``      — exact per-row best candidates (plain K3)
-- ``tokenizer.state``       — the merge state, inserts and column fold
+- ``tokenizer.state``       — the merge state, inserts, column fold and the
+                              distance-only loop (plain K4)
 - ``tokenizer.enhanced_state`` — sync, curvature Adam, the plain scored step
-- ``tokenizer.enhanced``    — ``EnhancedHyperbolicTokenizer``
+- ``tokenizer.core``/``tokenizer.enhanced`` — the tokenizer classes
+- ``tokenizer.encode``      — tokenize/encode/decode, native and Python
 - ``evals.selfcheck``       — kernels held to their plain versions
+- ``bench``                 — ``bench.py``'s workloads at full depth
+- ``cli.test_torch``        — device smoke test and kernel check
 - ``convert``               — states to and from the JAX package's layout
 """
 
 __version__ = "0.1.0"
 
 from hyptokenizer_tpu_torch import _device  # noqa: F401  (TF32 off)
-from hyptokenizer_tpu_torch.ops import lorentz  # noqa: F401
+from hyptokenizer_tpu_torch.ops import lorentz, poincare  # noqa: F401

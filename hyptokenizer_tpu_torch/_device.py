@@ -13,6 +13,8 @@ Importing this module sets both switches once, for the whole process.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -33,3 +35,18 @@ def resolve(device=None) -> torch.device:
             f"device {dev} requested but no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def card(dev: torch.device) -> dict:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` reads them, or
+    ``{"name": "cpu", "power_limit": None}`` for the CPU."""
+    if dev.type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    line = out.stdout.strip().splitlines()[dev.index or 0]
+    name, limit = line.rsplit(",", 1)
+    return {"name": name.strip(), "power_limit": limit.strip()}

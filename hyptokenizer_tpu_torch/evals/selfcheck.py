@@ -1,9 +1,12 @@
 """Kernel checks: a kernel's merge sequence against its plain version's.
 
-Port of the comparison protocol of ``hyptokenizer_tpu/evals/selfcheck.py``
-(``GRAM_ATOL`` :45, ``_compare_chunks`` :48, ``_check_base_kernel`` :76,
-``_lockstep_enhanced`` :115), with the port's plain PyTorch version as the
-oracle in place of XLA.
+Port of ``hyptokenizer_tpu/evals/selfcheck.py`` (``GRAM_ATOL`` :45,
+``_compare_chunks`` :48, ``_check_base_kernel`` :76, ``_lockstep_enhanced``
+:115, ``_check_enhanced_kernel`` :147, ``_check_enhanced_full_features``
+:172, ``kernel_selfcheck`` :195), with the port's plain PyTorch version as
+the oracle in place of XLA. :func:`kernel_selfcheck` is the on-card report
+that the port's bench, ``cli.test_torch --kernel-check`` and
+``chip_smoke.py`` print.
 
 Lockstep with oracle resync. Exact merge-sequence equality over a long run
 is not a property two float32 execution paths can promise: the kernel and
@@ -601,3 +604,95 @@ def pad_dense_state(st, n_rows: int, seed: int = 11, sigma: float = 0.5):
                                                              n_rows, c)
     base.vocab_size = torch.tensor(n_rows, dtype=torch.int32, device=dev)
     return st
+
+
+def _enhanced_selfcheck_tokenizer(corpus, seed: int, device, **features):
+    """The JAX package's selfcheck tokenizer (selfcheck.py:161-172 and
+    :186-194): the characters of ``corpus`` behind the four specials, points
+    at d=16 and sigma 0.6 from a generator seeded with ``seed``, and the
+    JAX constructor's arguments, with ``features`` (flags and weights)."""
+    import torch
+
+    from hyptokenizer_tpu_torch import _device
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
+
+    dev = _device.resolve(device)
+    chars = sorted({c for ln in corpus for c in ln})
+    vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + chars
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    emb = L.random_points(gen, len(vocab), 16, sigma=0.6, device=dev)
+    return EnhancedHyperbolicTokenizer(
+        vocab, emb, merge_threshold=5.0, max_vocab_size=256,
+        corpus_sample=corpus, corpus_max_tokens=1024, merge_batch=4,
+        search_block=64, freq_table_size=1024, queue_size=128, seed=0,
+        device=dev, **features)
+
+
+def _check_enhanced_kernel(out: Dict, device="cuda") -> None:
+    """Kernel K1 (the corpus-only segment) against its plain version, chunk
+    by chunk (:func:`_lockstep_enhanced`, 4 chunks of 8 merges), on the JAX
+    package's small corpus and configuration."""
+    corpus = ["the cat sat on the mat", "the dog sat on the log",
+              "a cat and a dog and a rat"] * 10
+    tok = _enhanced_selfcheck_tokenizer(
+        corpus, 1, device,
+        use_dense_channel=False, use_hierarchical=False,
+        use_adaptive_curvature=False, use_compression_aware=False,
+        alpha=0.1, beta=0.85, gamma=0.05)
+    _lockstep_enhanced(tok, 4, 8, out, "enhanced_kernel_selfcheck")
+
+
+def _check_enhanced_full_features(out: Dict, device="cuda") -> None:
+    """Kernel K2 (every feature on: frequency, hierarchical morphology,
+    compression and the dense channel) against its plain version, chunk by
+    chunk, on the JAX package's corpus and configuration; the constructor
+    runs kernel K3."""
+    corpus = ["walking dogs walk and walk the walking walk",
+              "the walking dog was walking quickly"] * 8
+    tok = _enhanced_selfcheck_tokenizer(
+        corpus, 3, device,
+        use_dense_channel=True, use_hierarchical=True,
+        use_adaptive_curvature=False, use_compression_aware=True,
+        alpha=0.3, beta=0.5, gamma=0.2)
+    _lockstep_enhanced(tok, 4, 8, out, "enhanced_full_selfcheck")
+
+
+# Each verdict's name and the check that writes it.
+SELFCHECKS = (("kernel_selfcheck", "_check_base_kernel"),
+              ("enhanced_kernel_selfcheck", "_check_enhanced_kernel"),
+              ("enhanced_full_selfcheck", "_check_enhanced_full_features"))
+
+
+def kernel_selfcheck(device="cuda") -> Dict:
+    """Every kernel against its plain version on the card: K4
+    (:func:`_check_base_kernel`), K1 (:func:`_check_enhanced_kernel`), K2
+    and K3 (:func:`_check_enhanced_full_features`).
+
+    A report: each check records "pass", "FAIL ..." or "error: ..." under
+    its name, and a check that raises never discards another's verdict.
+    Without a CUDA device it returns ``{"kernel_selfcheck": "skipped (no
+    CUDA device)"}`` (the kernels run only there); the callers decide what a
+    verdict other than "pass" means. ``device="cpu"`` runs the same checks
+    with the plain version on both sides."""
+    import torch
+
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_available():
+        return {"kernel_selfcheck": "skipped (no CUDA device)"}
+    out: Dict = {}
+    for name, check in SELFCHECKS:
+        try:
+            globals()[check](out, device=device)
+        except Exception as e:  # record, keep going
+            msg = str(e).splitlines()[0][:200] if str(e) else repr(e)[:200]
+            out[name] = f"error: {msg}"
+    return out
+
+
+def selfcheck_failures(report: Dict) -> Dict:
+    """The verdicts of a :func:`kernel_selfcheck` report that are not
+    "pass" (the skip verdict included)."""
+    return {name: report.get(name, "missing") for name, _ in SELFCHECKS
+            if report.get(name) != "pass"}

@@ -1,11 +1,12 @@
 """Lorentz (hyperboloid) model operations, in PyTorch.
 
-Port of ``hyptokenizer_tpu/ops/lorentz.py``: the part of its surface that
-the merge loop uses. Conventions are the JAX package's (see its module
-docstring and DEVIATIONS.md): points are ``(..., d+1)`` with the time-like
-coordinate first, ``<x,y>_L = x0*y0 - sum_i x_i y_i`` is positive on the
-sheet, ``acosh`` takes its log form and its argument is clamped to
-``>= 1 + eps``.
+Port of ``hyptokenizer_tpu/ops/lorentz.py``. Conventions are the JAX
+package's (see its module docstring and DEVIATIONS.md): points are
+``(..., d+1)`` with the time-like coordinate first, ``<x,y>_L = x0*y0 -
+sum_i x_i y_i`` is positive on the sheet, ``acosh`` takes its log form and
+its argument is clamped to ``>= 1 + eps``. ``log_map``,
+``parallel_transport`` and ``tangent_project`` carry the sign fixes of
+DEVIATIONS.md §1-5 (the intended geometry, not the reference's).
 
 Every gram runs in full float32 whatever the process-wide matmul setting:
 :func:`pairwise_minkowski_dot` switches TF32 off around its matmul and
@@ -24,6 +25,7 @@ from hyptokenizer_tpu_torch import _device
 # --- stability constants (the JAX package's, lorentz.py:54-57) ---
 EPS_NORM = 1e-8          # min squared-norm clamp
 ACOSH_EPS = 1e-8         # <x,y>_L clamped to >= 1 + ACOSH_EPS
+LOG_COEF_MAX = 1e4       # log-map coefficient cap
 EXP_ZERO_TOL = 1e-6      # exp-map / geodesic degenerate-direction mask
 
 
@@ -48,6 +50,11 @@ def minkowski_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * _signature(x.shape[-1], x) * y, dim=-1)
 
 
+def minkowski_norm(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(<x,x>_L, 1e-8))``."""
+    return torch.sqrt(torch.clamp_min(minkowski_dot(x, x), EPS_NORM))
+
+
 def project_to_hyperboloid(x: torch.Tensor, c=1.0) -> torch.Tensor:
     """Recompute the time coordinate: ``x0 = sqrt(1 + c * |x_spatial|^2)``."""
     spatial = x[..., 1:]
@@ -55,14 +62,40 @@ def project_to_hyperboloid(x: torch.Tensor, c=1.0) -> torch.Tensor:
     return torch.cat([torch.sqrt(1.0 + c * sq), spatial], dim=-1)
 
 
-def exp_map(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Exponential map of tangent ``v`` at ``x`` (Minkowski tangent norm)."""
+def lorentz_to_klein(x: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Klein-model coordinates ``x_spatial / x0``."""
+    del c
+    return x[..., 1:] / x[..., 0:1]
+
+
+def exp_map(x: torch.Tensor, v: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Exponential map of tangent ``v`` at ``x`` (Minkowski tangent norm;
+    ``c`` is accepted as the JAX package accepts it, and unused)."""
+    del c
     v_sq = (torch.sum(v[..., 1:] * v[..., 1:], dim=-1, keepdim=True)
             - v[..., :1] * v[..., :1])
     v_norm = torch.sqrt(torch.clamp_min(v_sq, EPS_NORM))
     mask = (v_norm < EXP_ZERO_TOL).to(v.dtype)
     direction = (1.0 - mask) * (v / (v_norm + mask))
     return torch.cosh(v_norm) * x + torch.sinh(v_norm) * direction
+
+
+def log_map(x: torch.Tensor, y: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Logarithmic map of ``y`` at ``x``: ``coef * (y - m x)`` with
+    ``m = <x,y>_L`` and ``coef = acosh(m)/sqrt(m^2 - 1)``, capped at
+    ``LOG_COEF_MAX`` and 1 where it is NaN, so that ``|log_x(y)| = d(x, y)``
+    and ``<x, log_x(y)>_L = 0`` (the sign of ``m`` fixed, DEVIATIONS.md)."""
+    del c
+    m = minkowski_dot(x, y)
+    m_c = torch.clamp_min(m, 1.0 + ACOSH_EPS)
+    denom_sq = m_c * m_c - 1.0
+    coef = torch.where(
+        denom_sq > 0,
+        acosh(m_c) / torch.sqrt(torch.clamp_min(denom_sq, EPS_NORM)),
+        torch.ones_like(m_c))
+    coef = torch.clamp_max(coef, LOG_COEF_MAX)
+    coef = torch.where(torch.isnan(coef), torch.ones_like(coef), coef)
+    return coef[..., None] * (y - m[..., None] * x)
 
 
 def geodesic_point(x: torch.Tensor, y: torch.Tensor, w) -> torch.Tensor:
@@ -127,6 +160,43 @@ def pairwise_dist(x: torch.Tensor, y: torch.Tensor, c=1.0,
     xy = torch.clamp_min(pairwise_minkowski_dot(x, y), 1.0 + eps)
     return acosh(xy) / torch.sqrt(torch.as_tensor(c, dtype=x.dtype,
                                                   device=x.device))
+
+
+# The reference's names for the pairwise distance (the JAX package's too).
+batch_distance = pairwise_dist
+batch_distance_optimized = pairwise_dist
+
+
+def parallel_transport(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                       c=1.0) -> torch.Tensor:
+    """Parallel transport of tangent ``v`` from ``x`` to ``y``:
+    ``v - <y,v>_L / (1 + <x,y>_L) * (x + y)``, tangent at ``y``."""
+    del c
+    m = minkowski_dot(x, y)[..., None]
+    coef = minkowski_dot(y, v)[..., None] / (1.0 + m)
+    return v - coef * (x + y)
+
+
+def tangent_project(x: torch.Tensor, g: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Project an ambient vector onto the tangent space at ``x``:
+    ``g - <x, g>_L * x``."""
+    del c
+    return g - minkowski_dot(x, g)[..., None] * x
+
+
+riemannian_gradient = tangent_project
+
+
+def rsgd_step(x: torch.Tensor, euclidean_grad: torch.Tensor, lr: float,
+              c=1.0) -> torch.Tensor:
+    """One Riemannian SGD step: flip the gradient's time component (the
+    inverse ambient metric), project it onto the tangent space at ``x``,
+    retract ``-lr`` times it through the exponential map, re-project onto
+    the sheet."""
+    h = euclidean_grad.clone()
+    h[..., 0] = -h[..., 0]
+    step = -lr * tangent_project(x, h)
+    return project_to_hyperboloid(exp_map(x, step), c)
 
 
 def origin(d: int, device=None, dtype=torch.float32) -> torch.Tensor:

@@ -17,7 +17,12 @@ from hyptokenizer_tpu_torch.tokenizer.core import (  # noqa: F401
 )
 from hyptokenizer_tpu_torch.tokenizer.encode import Encoder  # noqa: F401
 from hyptokenizer_tpu_torch.tokenizer.enhanced import (  # noqa: F401
+    AdaptiveCurvatureTokenizer,
+    CompressionAwareTokenizer,
+    EnhancedFastHyperbolicTokenizer,
     EnhancedHyperbolicTokenizer,
+    FrequencyAwareHyperbolicTokenizer,
+    HierarchicalHyperbolicTokenizer,
 )
 from hyptokenizer_tpu_torch.tokenizer.normalize import (  # noqa: F401
     WHITESPACE,

@@ -1,12 +1,17 @@
-"""``EnhancedHyperbolicTokenizer``: the flagship tokenizer, in PyTorch.
+"""The enhanced tokenizer family, in PyTorch.
 
-Port of ``hyptokenizer_tpu/tokenizer/enhanced.py``: corpus-only training
-(the flagship benchmark, ``bench.py`` ``bench_enhanced``) and the dense,
-all-features configuration (``bench.py`` ``bench_allfeatures``). The
-constructor keeps the JAX package's signature, except that ``device`` is
-honoured (default ``"cuda"``), ``seed`` seeds the :class:`TorchSampler` the
-loop draws from, and the multi-device knobs (``mesh``, ``corpus_shrink``)
-wait for a later slice.
+Port of ``hyptokenizer_tpu/tokenizer/enhanced.py``:
+``EnhancedHyperbolicTokenizer`` with corpus-only training (the flagship
+benchmark, ``bench.py`` ``bench_enhanced``) and the dense, all-features
+configuration (``bench.py`` ``bench_allfeatures``); its four configurations
+``FrequencyAwareHyperbolicTokenizer``, ``HierarchicalHyperbolicTokenizer``,
+``AdaptiveCurvatureTokenizer`` and ``CompressionAwareTokenizer``; and the
+``EnhancedFastHyperbolicTokenizer`` alias. The constructor keeps the JAX
+package's signature, except that ``device`` is honoured (default
+``"cuda"``), ``seed`` seeds the :class:`TorchSampler` the loop draws from,
+and ``mesh`` waits for the port of ``parallel/``. ``corpus_shrink`` (off by
+default, as in the JAX package) halves the corpus buffer while its live
+prefix fits, on one device.
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ from hyptokenizer_tpu_torch.utils import morphology
 logger = logging.getLogger(__name__)
 
 DEFAULT_CORPUS_TOKENS = 1 << 21
+
+
+def _live_count(corpus: torch.Tensor) -> torch.Tensor:
+    """Non-PAD prefix length of a (compacted) corpus buffer."""
+    return torch.sum(corpus != scoring.PAD_ID)
 
 
 def _token_features(tokens: Sequence[str]):
@@ -99,6 +109,7 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
         normalizer=None,
         merge_policy: str = "fixpoint",
         corpus_shards: int = 1,
+        corpus_shrink: bool = False,
     ):
         del cache_size, rebuild_frequency, hnsw_m, hnsw_ef_construction
         del hnsw_ef_search, distance_weight, sample_size, pool_k
@@ -119,6 +130,7 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
             search_block=search_block, normalizer=normalizer,
             merge_policy=merge_policy)
         self.language = language
+        self.corpus_shrink = corpus_shrink
         # The length cap, mirrored so that load's candidate re-scan applies
         # the gate that training applies.
         self.config = dataclasses.replace(self.config,
@@ -221,6 +233,27 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
         return torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(
             self.device)
 
+    def _maybe_shrink_corpus(self) -> None:
+        """Halve the corpus buffer while its live prefix fits (opt-in).
+
+        Merges only shrink the corpus (replay and compaction leave a PAD
+        tail) and every sync costs in proportion to the buffer, so slicing
+        to the next power of two above the live count keeps late syncs
+        proportional to the live corpus. Only the PAD tail goes: the merge
+        sequence is unchanged. A shard-aligned corpus keeps its live tokens
+        at each shard's prefix, so it is never sliced."""
+        if not self.corpus_shrink or self.corpus_shards > 1:
+            return
+        corpus = self.enh_state.corpus
+        buf = corpus.shape[0]
+        if buf <= self.MIN_CORPUS_BUFFER:
+            return
+        live = int(_live_count(corpus))
+        new = max(self.MIN_CORPUS_BUFFER, 1 << max(1, live).bit_length())
+        if new <= buf // 2:
+            self.enh_state = dataclasses.replace(self.enh_state,
+                                                 corpus=corpus[:new])
+
     def register_callback(self, fn: Callable[[Dict], None]) -> None:
         """Per-chunk progress callback."""
         self.callbacks.append(fn)
@@ -288,6 +321,8 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
                 syncs += rounds
                 run += n
             new = self._sync_merges_from_device()
+            if self.enh_config.needs_corpus:
+                self._maybe_shrink_corpus()
             zero_chunks = zero_chunks + 1 if new == 0 else 0
             if zero_chunks >= 2:
                 logger.info("No more merge candidates found. Stopping.")
@@ -550,3 +585,65 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
         tok.enh_state = st
         tok.state = st.base
         return tok
+
+
+class FrequencyAwareHyperbolicTokenizer(EnhancedHyperbolicTokenizer):
+    """Frequency-scored merges only."""
+
+    def __init__(self, vocab, embeddings, alpha: float = 0.4,
+                 beta: float = 0.4, gamma: float = 0.2, **kw):
+        kw.setdefault("use_hierarchical", False)
+        kw.setdefault("use_adaptive_curvature", False)
+        kw.setdefault("use_compression_aware", False)
+        super().__init__(vocab, embeddings, use_frequency_aware=True,
+                         alpha=alpha, beta=beta, gamma=gamma, **kw)
+
+
+class HierarchicalHyperbolicTokenizer(EnhancedHyperbolicTokenizer):
+    """Merges under the 3-phase curriculum."""
+
+    def __init__(self, vocab, embeddings, **kw):
+        kw.setdefault("use_frequency_aware", False)
+        kw.setdefault("use_adaptive_curvature", False)
+        kw.setdefault("use_compression_aware", False)
+        super().__init__(vocab, embeddings, use_hierarchical=True, **kw)
+
+    def _is_potential_morpheme(self, token: str) -> bool:
+        return self.morphology.is_potential_morpheme(token)
+
+    def _is_valid_word(self, token: str) -> bool:
+        return self.morphology.is_valid_word(token)
+
+
+class AdaptiveCurvatureTokenizer(EnhancedHyperbolicTokenizer):
+    """Merges with a trained curvature."""
+
+    def __init__(self, vocab, embeddings, curvature_lr: float = 0.01,
+                 hierarchy_weight: float = 1.0,
+                 distortion_weight: float = 0.1,
+                 optimize_curvature_freq: int = 100, **kw):
+        kw.setdefault("use_frequency_aware", False)
+        kw.setdefault("use_hierarchical", False)
+        kw.setdefault("use_compression_aware", False)
+        super().__init__(vocab, embeddings, use_adaptive_curvature=True,
+                         curvature_lr=curvature_lr,
+                         hierarchy_weight=hierarchy_weight,
+                         distortion_weight=distortion_weight,
+                         optimize_curvature_freq=optimize_curvature_freq,
+                         **kw)
+
+
+class CompressionAwareTokenizer(EnhancedHyperbolicTokenizer):
+    """Compression-gain-scored merges."""
+
+    def __init__(self, vocab, embeddings, compression_weight: float = 0.7,
+                 **kw):
+        kw.setdefault("use_frequency_aware", False)
+        kw.setdefault("use_hierarchical", False)
+        kw.setdefault("use_adaptive_curvature", False)
+        super().__init__(vocab, embeddings, use_compression_aware=True,
+                         compression_weight=compression_weight, **kw)
+
+
+# The reference's name.
+EnhancedFastHyperbolicTokenizer = EnhancedHyperbolicTokenizer

@@ -597,3 +597,13 @@ def test_grams_stay_fp32_after_high_precision(cuda):
         x.double(), torch.arange(256)[:, None], torch.arange(256)[None, :],
         101) / 2
     assert bool(((g - ref).abs() <= bound).all())
+
+
+def test_kernel_selfcheck_passes_on_the_card(cuda):
+    """``evals/selfcheck.kernel_selfcheck``: K4, K1 and K2 (with K3 in its
+    constructor) against their plain versions, every verdict "pass"."""
+    out = selfcheck.kernel_selfcheck()
+    assert selfcheck.selfcheck_failures(out) == {}, out
+    assert out["kernel_selfcheck_merges"] > 0
+    assert out["enhanced_kernel_selfcheck_merges"] > 0
+    assert out["enhanced_full_selfcheck_merges"] > 0

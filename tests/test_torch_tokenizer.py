@@ -194,6 +194,11 @@ def test_import_leaves_jax_out():
         "import hyptokenizer_tpu_torch.tokenizer.state\n"
         "import hyptokenizer_tpu_torch.tokenizer.core\n"
         "import hyptokenizer_tpu_torch.evals.selfcheck\n"
+        "import hyptokenizer_tpu_torch.bench\n"
+        "import hyptokenizer_tpu_torch.cli.test_torch\n"
+        "import hyptokenizer_tpu_torch.ops.poincare\n"
+        "import hyptokenizer_tpu_torch.tokenizer.encode\n"
+        "import hyptokenizer_tpu_torch.tokenizer.enhanced\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'hyptokenizer_tpu.')) or m == 'hyptokenizer_tpu']\n"
         "assert not bad, bad\n")
