@@ -69,11 +69,35 @@ Phases:
    same ids after ``save``/``load``); every selfcheck verdict must be
    "pass". Prints the bench's first-line JSON, its diagnostics and its
    wall time;
-6. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
+6. the CLI phase (``cli_phase``): the port's training CLIs as a user runs
+   them, at full width (d=100) on ``data/wiki_corpus.txt.bz2``
+   decompressed to ``corpus.txt``. (a) The README's Quick start verbatim
+   under ``hyptokenizer_tpu_torch.cli`` (50,000 slots, 46,000 steps, 3,000
+   pretraining steps, words pre-split, priority policy) with
+   ``--hierarchy-supervision merge-tree`` at its default 9,000 steps:
+   K3 in the constructor and K2 must launch, the pretraining loss must
+   fall, the saved rows be finite and on the sheet, the encode lossless and
+   the saved artifacts encode the same ids; its stages (pretraining,
+   training, supervision) are timed from the metrics stream. (b) The
+   flagship's flags (``bench.ENHANCED``) through the CLI with
+   ``--no-use-dense-channel``: K1 to the target or to candidate
+   exhaustion, the same checks. (c) Exact resume: the Quick start's dense
+   configuration for ``RESUME_STEPS`` merges (both phase switches, a
+   curvature event every 100 merges) in one process, and in two: a half
+   with a checkpoint (started beside the first), then ``--resume`` in a
+   new process; merge histories identical, embeddings, curvature and
+   threshold equal to the bit. (d)
+   ``train_tokenizer`` (K3, K4) cut to 512 steps, as the JAX CLI runs it
+   with no token-length cap, its vocabulary bytes gated. (a), (b) and (d)
+   run through ``main(argv)`` with the launch counts reset just before and
+   read just after, each launch timed by ``KernelTimer``; (c) runs
+   ``python -m`` processes;
+7. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
    and its bound at the fp32 rate outside the tensor cores: numbers
    computed from the shapes, not measured), a ``kernels`` JSON line
    (measured, with each kernel's ``bound_ms`` and its launches and event
-   time on the full-depth paths, ``full_depth``), the card line, and the
+   time on the full-depth paths, ``full_depth``, and its launches on the
+   CLI paths, ``launches_cli``), the card line, and the
    last line ``{"ok": true, "device": {...}}``, printed only when every
    phase passed.
 
@@ -1098,6 +1122,273 @@ def bench_phase(lines):
     return head, diag, rec, depth, wall
 
 
+# The CLI phase: the README's Quick start (with merge-tree supervision at
+# its default 27,000 // 3 = 9,000 steps), the flagship's flags of
+# bench.ENHANCED, the resume check and the distance-only CLI.
+QUICKSTART = ["--embedding-dim", "100", "--max-vocab-size", "50000",
+              "--steps", "46000", "--embed-steps", "3000",
+              "--pre-split", "words", "--merge-policy", "priority"]
+SUPERVISION = ["--hierarchy-supervision", "merge-tree"]
+FLAGSHIP_CLI = ["--embedding-dim", "100", "--init-sigma", "0.5",
+                "--max-vocab-size", "50176", "--merge-threshold", "100.0",
+                "--alpha", "0.05", "--beta", "0.9", "--gamma", "0.05",
+                "--no-use-hierarchical", "--no-use-compression-aware",
+                "--optimize-curvature-freq", "1000",
+                "--no-use-dense-channel", "--merge-batch", "16",
+                "--corpus-max-tokens", "2900000", "--seed", "0",
+                "--steps", "50000", "--log-every", "2048",
+                "--target-vocab-size", "50000", "--pre-split", "words",
+                "--merge-policy", "priority"]
+RESUME_STEPS = 6144      # crosses both phase switches (1000, 6000)
+RESUME_CHUNK = 1024      # --log-every; the checkpoint after 3 chunks
+# train_tokenizer as the JAX CLI runs it: no token-length cap. Its strings
+# grow with the square of the steps once its chains pass the acosh clamp
+# floor (about 1 MB at 512 steps), so the depth is cut to 512 steps and
+# the vocabulary's bytes are gated.
+BASE_CLI = ["--embedding-dim", "100", "--max-vocab-size", "50000",
+            "--steps", "512", "--log-every", "256"]
+BASE_CLI_MAX_BYTES = 16 << 20
+SHEET_RTOL = 1e-5        # x0 against sqrt(1 + c |x_s|^2) in float64
+
+
+def check_on_sheet(out_dir: str, what: str, c: float = 1.0) -> None:
+    """The saved rows are finite and on the sheet ``x0^2 - c |x_s|^2 = 1``
+    (the embedding trainers project with the tokenizer's curvature ``c``,
+    as the JAX package's do)."""
+    import numpy as np
+    emb = np.load(os.path.join(out_dir, "embeddings.npy")).astype(np.float64)
+    if not np.isfinite(emb).all():
+        fail(f"{what}: non-finite saved embeddings")
+    x0 = np.sqrt(1.0 + c * np.sum(emb[:, 1:] ** 2, axis=1))
+    err = float(np.max(np.abs(emb[:, 0] - x0) / x0))
+    if err > SHEET_RTOL:
+        fail(f"{what}: saved rows off the sheet (relative {err:.3g})")
+
+
+def check_loaded(tok, cls, out_dir, sample, what, device):
+    """Lossless encode, and the same ids from the CLI's saved artifacts."""
+    ids = tok.encode_batch(sample)
+    for text, seq in zip(sample, ids):
+        if tok.decode(seq) != text:
+            fail(f"{what}: encode/decode is not lossless on {text[:40]!r}")
+    back = cls.load(out_dir, device=device)
+    if back.encode_batch(sample) != ids or back.vocab != tok.vocab:
+        fail(f"{what}: the saved artifacts encode differently")
+
+
+def read_metrics(path: str) -> dict:
+    with open(path) as f:
+        records = [json.loads(ln) for ln in f]
+    return {r["stage"]: r for r in records if "stage" in r}
+
+
+def run_clis(runs, work):
+    """CLI runs, each in a new process (``python -m``) as a user runs it,
+    all started together. ``runs`` maps a name to its argv; returns each
+    run's seconds. A failed run fails the phase once every process ended."""
+    cmd = [sys.executable, "-m",
+           "hyptokenizer_tpu_torch.cli.train_enhanced_tokenizer"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    logs = {what: os.path.join(work, what + ".log") for what in runs}
+    t0 = time.perf_counter()
+    procs = {}
+    took = {}
+    try:
+        for what, argv in runs.items():
+            with open(logs[what], "w") as log:
+                procs[what] = subprocess.Popen(
+                    cmd + argv, cwd=HERE, stdout=subprocess.DEVNULL,
+                    stderr=log, env=env)
+        while len(took) < len(procs):
+            if time.perf_counter() - t0 > 600:
+                fail(f"CLI runs {sorted(set(procs) - set(took))} took over "
+                     "600 s")
+            for what, proc in procs.items():
+                if what not in took and proc.poll() is not None:
+                    took[what] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    errors = []
+    for what, proc in procs.items():
+        if proc.returncode != 0:
+            with open(logs[what]) as f:
+                errors.append(f"{what}: exit {proc.returncode}\n"
+                              f"{f.read()[-3000:]}")
+    if errors:
+        fail("; ".join(errors))
+    return took
+
+
+def cli_phase(work: str, lines):
+    """The port's CLIs as a user runs them, on the corpus decompressed to
+    ``work/corpus.txt``: (a) the README's Quick start with merge-tree
+    supervision, (b) the flagship's flags with ``--no-use-dense-channel``,
+    (c) exact resume across processes, (d) ``train_tokenizer``. Each of
+    (a), (b) and (d) runs through ``main(argv)`` with the launch counts
+    reset just before and read just after, each kernel's launches timed by
+    ``KernelTimer``. Returns the phase's numbers."""
+    from hyptokenizer_tpu_torch.cli import train_enhanced_tokenizer as TE
+    from hyptokenizer_tpu_torch.cli import train_tokenizer as TB
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+    from hyptokenizer_tpu_torch.tokenizer import (
+        EnhancedHyperbolicTokenizer, HyperbolicTokenizer)
+
+    import bz2
+    import shutil
+    corpus = os.path.join(work, "corpus.txt")
+    with bz2.open(CORPUS, "rb") as src, open(corpus, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    device = "cuda"   # the CLIs' default: no --device flag is passed
+    sample = lines[:16]
+    res = {}
+
+    def drive(name, main_fn, argv, needs):
+        K12.reset_launches()
+        K3.reset_launches()
+        K4.reset_launches()
+        timer = KernelTimer()
+        try:
+            t0 = time.perf_counter()
+            tok = main_fn(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            timed = timer.collect()
+        finally:
+            timer.close()
+        counts = {"enhanced_loop": K12.launches,
+                  "enhanced_loop_dense": K12.dense_launches,
+                  "pairwise_min_best": K3.launches,
+                  "merge_loop": K4.launches}
+        for kernel in needs:
+            if counts[kernel] <= 0:
+                fail(f"the CLI path {name} never launched kernel {kernel}")
+        res[name] = dict(
+            wall_s=wall, merges=len(tok.merge_history), vocab=len(tok.vocab),
+            launches={k: counts[k] for k in needs},
+            kernels={k: timed[k] for k in needs if k in timed})
+        return tok
+
+    # (a) the Quick start
+    out_a = os.path.join(work, "quickstart")
+    m_a = os.path.join(work, "quickstart.jsonl")
+    tok = drive("quickstart", TE.main,
+                ["--corpus-path", corpus, "--output-dir", out_a,
+                 "--metrics-path", m_a] + QUICKSTART + SUPERVISION,
+                ("enhanced_loop_dense", "pairwise_min_best"))
+    stages = read_metrics(m_a)
+    print(f"CLI (a) Quick start: {json.dumps(res['quickstart'])} stages "
+          f"{json.dumps(stages)} chunk_syncs "
+          f"{[s['chunk_syncs'] for s in tok.training_stats]} chunk_seconds "
+          f"{[round(s['chunk_seconds'], 3) for s in tok.training_stats]}",
+          flush=True)
+    pre = stages["embed_pretrain"]
+    if not pre["loss_last"] < pre["loss_first"]:
+        fail(f"Quick start pretraining loss {pre['loss_first']} -> "
+             f"{pre['loss_last']} did not fall")
+    check_on_sheet(out_a, "Quick start", float(tok.state.curvature))
+    t0 = time.perf_counter()
+    check_trained(tok, [ln for ln in lines if ln][:16], device)
+    check_loaded(tok, EnhancedHyperbolicTokenizer, out_a, sample,
+                 "Quick start", device)
+    res["quickstart"]["checks_s"] = time.perf_counter() - t0
+    res["quickstart"].update(
+        phase=tok.current_phase, curvature=float(tok.state.curvature),
+        pretrain_s=pre["seconds"], pretrain_steps=pre["steps"],
+        pretrain_loss=[pre["loss_first"], pre["loss_last"]],
+        train_s=stages["train"]["seconds"],
+        supervision_s=stages["hierarchy_supervision"]["seconds"])
+    del tok
+
+    # (b) the flagship's flags through the CLI, corpus only (K1)
+    out_b = os.path.join(work, "flagship")
+    tok = drive("flagship", TE.main,
+                ["--corpus-path", corpus, "--output-dir", out_b]
+                + FLAGSHIP_CLI,
+                ("enhanced_loop",))
+    # The bench's stop: its target, or candidate exhaustion (a chunk that
+    # merged nothing, and the next one, which optimize_merges does not
+    # record, merged nothing too).
+    target = int(FLAGSHIP_CLI[FLAGSHIP_CLI.index("--target-vocab-size") + 1])
+    last = tok.training_stats[-1]["chunk_merges"]
+    print(f"CLI (b) flagship: {json.dumps(res['flagship'])} last chunk "
+          f"{last}", flush=True)
+    if len(tok.vocab) < target and last != 0:
+        fail(f"the flagship CLI ended at vocab {len(tok.vocab)}, its last "
+             f"chunk merging {last}")
+    check_trained(tok, [ln for ln in lines if ln][:16], device)
+    check_loaded(tok, EnhancedHyperbolicTokenizer, out_b, sample,
+                 "flagship CLI", device)
+    res["flagship"]["stop"] = ("target" if len(tok.vocab) >= target
+                               else "no candidates")
+    del tok
+
+    # (c) exact resume: uninterrupted, and beside it a checkpointed half,
+    # then its continuation in a new process (--steps counts what is left).
+    ck = os.path.join(work, "ck")
+    common = (["--corpus-path", corpus, "--log-every", str(RESUME_CHUNK)]
+              + QUICKSTART)
+    common[common.index("--steps") + 1] = str(RESUME_STEPS)
+    half = list(common)
+    half[half.index("--steps") + 1] = str(RESUME_STEPS // 2)
+    every = ["--checkpoint-dir", ck, "--checkpoint-every",
+             str(RESUME_STEPS // 2 // RESUME_CHUNK)]
+    dirs = {k: os.path.join(work, "resume_" + k)
+            for k in ("whole", "half", "resumed")}
+    took = run_clis({
+        "whole": common + ["--output-dir", dirs["whole"]],
+        "half": half + every + ["--output-dir", dirs["half"]]}, work)
+    took.update(run_clis({"resumed": half + [
+        "--checkpoint-dir", ck, "--resume", "--output-dir", dirs["resumed"]]},
+        work))
+    with open(os.path.join(ck, "host_state.json")) as f:
+        at = len(json.load(f)["merge_history"])
+    import numpy as np
+    got = {}
+    for k in ("whole", "resumed"):
+        with open(os.path.join(dirs[k], "merges.json")) as f:
+            merges = f.read()
+        with open(os.path.join(dirs[k], "config.json")) as f:
+            cfg = json.load(f)
+        got[k] = (merges, np.load(os.path.join(dirs[k], "embeddings.npy")),
+                  np.load(os.path.join(dirs[k], "curvature.npy")),
+                  cfg["merge_threshold"], cfg["curvature"])
+    w, r = got["whole"], got["resumed"]
+    n_merges = len(json.loads(w[0]))
+    if n_merges < RESUME_STEPS or not 0 < at < n_merges:
+        fail(f"resume check: {n_merges} merges, checkpoint at {at}")
+    if w[0] != r[0]:
+        fail("resume check: the merge histories differ")
+    if not (np.array_equal(w[1], r[1]) and np.array_equal(w[2], r[2])
+            and w[3] == r[3] and w[4] == r[4]):
+        fail("resume check: embeddings, curvature or threshold differ")
+    res["resume"] = dict(merges=n_merges, checkpoint_at=at,
+                         curvature=float(w[2]), threshold=w[3],
+                         process_s=took)
+    print(f"CLI (c) resume: {json.dumps(res['resume'])}", flush=True)
+
+    # (d) train_tokenizer (K3 in the constructor, K4 in training)
+    out_d = os.path.join(work, "base")
+    tok = drive("train_tokenizer", TB.main,
+                ["--corpus-path", corpus, "--output-dir", out_d] + BASE_CLI,
+                ("pairwise_min_best", "merge_loop"))
+    nbytes = sum(len(t.encode("utf-8")) for t in tok.vocab)
+    if nbytes > BASE_CLI_MAX_BYTES:
+        fail(f"train_tokenizer's vocabulary holds {nbytes} bytes")
+    check_on_sheet(out_d, "train_tokenizer")
+    check_loaded(tok, HyperbolicTokenizer, out_d, sample, "train_tokenizer",
+                 device)
+    res["train_tokenizer"].update(
+        vocab_bytes=nbytes, longest=max(len(t) for t in tok.vocab),
+        steps=int(tok.state.step))
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1281,6 +1572,33 @@ def main() -> None:
         fd = k["full_depth"]
         k["launches_full_depth"] = (fd["launches"] if "launches" in fd else
                                     sum(v["launches"] for v in fd.values()))
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        cli = cli_phase(work, lines)
+        cli_s = time.perf_counter() - t0
+    q, fl, rs, b = (cli["quickstart"], cli["flagship"], cli["resume"],
+                    cli["train_tokenizer"])
+    cli_kernels = {path: rec["kernels"] for path, rec in cli.items()
+                   if "kernels" in rec}
+    print(f"CLI phase {cli_s:.1f} s: Quick start {q['merges']} merges "
+          f"(vocab {q['vocab']}, phase {q['phase']}, curvature "
+          f"{q['curvature']:.6f}) in {q['wall_s']:.2f} s: pretraining "
+          f"{q['pretrain_steps']} steps {q['pretrain_s']:.3f} s (loss "
+          f"{q['pretrain_loss'][0]:.4f} -> {q['pretrain_loss'][1]:.4f}), "
+          f"training {q['train_s']:.3f} s, supervision "
+          f"{q['supervision_s']:.3f} s; flagship CLI {fl['merges']} merges "
+          f"(vocab {fl['vocab']}, stop {fl['stop']}) in {fl['wall_s']:.2f} "
+          f"s; resume exact over {rs['merges']} merges (checkpoint at "
+          f"{rs['checkpoint_at']}, curvature {rs['curvature']:.6f}, "
+          f"processes {json.dumps(rs['process_s'])}); train_tokenizer "
+          f"{b['merges']} merges in {b['steps']} steps, {b['wall_s']:.2f} s, "
+          f"{b['vocab_bytes']} vocabulary bytes (longest {b['longest']}); "
+          f"kernels {json.dumps(cli_kernels)}", flush=True)
+    for k, name in ((k1, "enhanced_loop"), (k2, "enhanced_loop_dense"),
+                    (k3, "pairwise_min_best"), (k4, "merge_loop")):
+        k["launches_cli"] = {path: rec["launches"][name]
+                             for path, rec in cli.items()
+                             if name in rec.get("launches", {})}
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

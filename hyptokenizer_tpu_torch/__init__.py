@@ -7,7 +7,8 @@ Its tests hold each module to its JAX counterpart.
 
 Ported so far: corpus-only, all-features and distance-only training, the
 enhanced configurations, encoding, the geometry, the kernels' selfcheck,
-the bench and the device CLI:
+the bench, the device CLI, and the training CLIs with embedding
+pretraining, hierarchy supervision, checkpoint and resume:
 
 - ``ops.lorentz``, ``ops.poincare`` — hyperbolic geometry
 - ``ops.cuda.enhanced_loop``— kernels K1 and K2, the scored merge segment
@@ -21,9 +22,14 @@ the bench and the device CLI:
 - ``tokenizer.enhanced_state`` — sync, curvature Adam, the plain scored step
 - ``tokenizer.core``/``tokenizer.enhanced`` — the tokenizer classes
 - ``tokenizer.encode``      — tokenize/encode/decode, native and Python
+- ``tokenizer.embed_train`` — RSGD embedding pretraining and supervision
 - ``evals.selfcheck``       — kernels held to their plain versions
+- ``evals.hierarchy``       — WordNet hierarchy distortion
 - ``bench``                 — ``bench.py``'s workloads at full depth
-- ``cli.test_torch``        — device smoke test and kernel check
+- ``cli``                   — the training CLIs, ``test_torch`` (device
+                              smoke test and kernel check)
+- ``utils``                 — data helpers, ``TrainConfig``, metrics,
+                              checkpoints
 - ``convert``               — states to and from the JAX package's layout
 """
 

@@ -32,6 +32,9 @@ ARCH = "arch=compute_90a,code=sm_90a"
 _LOCK = threading.Lock()
 _LIBS: dict = {}       # name -> loaded ctypes.CDLL
 BUILD_LOG: dict = {}   # name -> {"seconds": float, "ptxas": str}
+# This process's builds: wall seconds inside nvcc, and libraries asked for
+# against those found already built (utils/metrics.py reads them).
+STATS = {"nvcc_s": 0.0, "requests": 0, "hits": 0}
 
 
 def nvcc_path() -> str:
@@ -91,7 +94,9 @@ def build_all(names=None) -> dict:
     t0 = time.perf_counter()
     for name in names:
         src, out = _target(name)
+        STATS["requests"] += 1
         if os.path.exists(out):
+            STATS["hits"] += 1
             continue
         cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", out + ".tmp", src]
@@ -108,6 +113,8 @@ def build_all(names=None) -> dict:
             continue
         os.replace(out + ".tmp", out)
         BUILD_LOG[name] = {"seconds": took[name], "ptxas": log}
+    if procs:
+        STATS["nvcc_s"] += time.perf_counter() - t0
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return took
@@ -118,9 +125,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            _, out = _target(name)
-            if not os.path.exists(out):
-                build_all([name])
-            lib = ctypes.CDLL(out)
+            build_all([name])
+            lib = ctypes.CDLL(_target(name)[1])
             _LIBS[name] = lib
         return lib

@@ -39,10 +39,11 @@ def acosh(x: torch.Tensor) -> torch.Tensor:
 
 
 def _signature(d1: int, like: torch.Tensor) -> torch.Tensor:
-    """Metric signature ``(+1, -1, ..., -1)`` of length ``d1``."""
-    sig = -torch.ones(d1, dtype=like.dtype, device=like.device)
-    sig[0] = 1.0
-    return sig
+    """Metric signature ``(+1, -1, ..., -1)`` of length ``d1``, made on the
+    device (assigning a Python number to an element of a CUDA tensor is a
+    host-to-device copy, which synchronises)."""
+    first = torch.arange(d1, device=like.device) == 0
+    return torch.where(first, 1.0, -1.0).to(like.dtype)
 
 
 def minkowski_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

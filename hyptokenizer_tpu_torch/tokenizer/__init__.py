@@ -7,6 +7,7 @@ all-features training).
                        distance-only loop (plain K4)
 - ``enhanced_state`` — sync, curvature Adam, the scored step (plain K1, K2)
 - ``core``/``enhanced`` — the host-side tokenizer classes and artifacts
+- ``embed_train``    — RSGD embedding pretraining and hierarchy supervision
 - ``encode``         — tokenize/encode/decode
 - ``normalize``      — Unicode normalization and lossless pre-splitting
 """

@@ -34,6 +34,7 @@ from hyptokenizer_tpu_torch.tokenizer import search as search_lib
 from hyptokenizer_tpu_torch.tokenizer import state as state_lib
 from hyptokenizer_tpu_torch.tokenizer.encode import Encoder
 from hyptokenizer_tpu_torch.tokenizer.normalize import NormalizerConfig
+from hyptokenizer_tpu_torch.utils import metrics
 
 logger = logging.getLogger(__name__)
 
@@ -183,6 +184,8 @@ class HyperbolicTokenizer:
             chunk = min(log_every, steps - done)
             t0 = time.perf_counter()
             self.state = state_lib.run_merges(self.state, self.config, chunk)
+            if metrics.nan_checks_enabled():
+                metrics.check_finite(self.state, f"step {done + chunk}")
             self._sync_merges_from_device()
             dt = time.perf_counter() - t0
             done += chunk

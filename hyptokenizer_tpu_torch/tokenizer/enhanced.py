@@ -31,7 +31,7 @@ from hyptokenizer_tpu_torch.tokenizer import scoring
 from hyptokenizer_tpu_torch.tokenizer.core import HyperbolicTokenizer
 from hyptokenizer_tpu_torch.tokenizer.normalize import NormalizerConfig
 from hyptokenizer_tpu_torch.tokenizer.state import MergeConfig
-from hyptokenizer_tpu_torch.utils import morphology
+from hyptokenizer_tpu_torch.utils import metrics, morphology
 
 logger = logging.getLogger(__name__)
 
@@ -320,6 +320,8 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
                     self.enh_state, self.enh_config, n, self.sampler)
                 syncs += rounds
                 run += n
+            if metrics.nan_checks_enabled():
+                metrics.check_finite(self.enh_state, f"step {done + chunk}")
             new = self._sync_merges_from_device()
             if self.enh_config.needs_corpus:
                 self._maybe_shrink_corpus()

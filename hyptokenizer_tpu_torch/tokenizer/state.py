@@ -207,6 +207,13 @@ class StatsSampler:
         return (self._randint((sample_size,), n),
                 self._randint((sample_size,), n - 1))
 
+    def get_state(self) -> torch.Tensor:
+        """The generator's state, for a checkpoint (``utils/checkpoint``)."""
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
 
 def distance_statistics(emb: torch.Tensor, vocab_size, curvature,
                         sampler, sample_size: int = 1000) -> torch.Tensor:

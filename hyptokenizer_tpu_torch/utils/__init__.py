@@ -1,1 +1,3 @@
-"""Host-side data and morphology helpers of the port."""
+"""Host-side helpers of the port: data (cleaning, vocabulary, corpus
+encoding, embedding init), morphology, ``TrainConfig``, metrics and
+checkpoints."""

@@ -1,10 +1,12 @@
-"""Corpus input for the constructor: cleaning, bz2 reading, char encoding.
+"""Data pipeline: text cleaning, vocabulary building, embedding init, IO.
 
-The part of ``hyptokenizer_tpu/utils/data.py`` that
-``EnhancedHyperbolicTokenizer``'s constructor uses, copied (numpy only):
-``clean_text`` (the normalizer's ``clean`` recipe), ``encode_corpus_chars``
-and ``shard_align_corpus`` (``tokenizer/enhanced.py:293-316``), plus
-``read_corpus_lines`` for ``data/wiki_corpus.txt.bz2``.
+Port of ``hyptokenizer_tpu/utils/data.py``: ``clean_text``, ``open_text``
+(bz2-aware), ``preprocess_lines``, ``build_initial_vocab`` (first-seen
+order), ``load_vocab``/``save_vocab``, ``encode_corpus_chars`` and
+``shard_align_corpus`` are copied (numpy only); ``initialize_embeddings``
+draws through the port's ``lorentz.random_points`` from a
+``torch.Generator``. ``read_corpus_lines`` reads the flagship benchmark's
+``data/wiki_corpus.txt.bz2``.
 """
 
 from __future__ import annotations
@@ -12,10 +14,13 @@ from __future__ import annotations
 import bz2
 import re
 import unicodedata
-from typing import Iterable, List, Optional
+from collections import Counter
+from typing import IO, Iterable, List, Optional, Union
 
 import numpy as np
+import torch
 
+SPECIAL_TOKENS = ["<pad>", "<bos>", "<eos>", "<unk>"]
 _STRIP_RE = re.compile(r"[^a-z0-9\s\.\,]")
 _WS_RE = re.compile(r"\s+")
 
@@ -33,6 +38,76 @@ def clean_text(text: str) -> str:
     text = _STRIP_RE.sub(" ", text)
     text = _WS_RE.sub(" ", text)
     return text
+
+
+def open_text(path: str, mode: str = "r") -> IO:
+    """BZ2-aware text open (preprocess_wiki.py:55-75)."""
+    if path.endswith(".bz2"):
+        if "r" in mode:
+            return bz2.open(path, mode + "t", encoding="utf-8",
+                            errors="ignore")
+        return bz2.open(path, mode + "t", encoding="utf-8")
+    return open(path, mode, encoding="utf-8")
+
+
+def preprocess_lines(lines: Iterable[str], min_length: int = 0) -> Iterable[str]:
+    """Clean lines, dropping those shorter than ``min_length`` post-cleaning."""
+    for line in lines:
+        cleaned = clean_text(line)
+        if len(cleaned) >= min_length and cleaned:
+            yield cleaned
+
+
+def build_initial_vocab(lines: Iterable[str], min_count: int = 5) -> List[str]:
+    """Char-frequency vocab with specials prepended (preprocess_wiki.py:126-166).
+
+    Characters keep first-seen order, filtered by ``min_count``.
+    """
+    counts: Counter = Counter()
+    seen_order: List[str] = []
+    seen = set()
+    for line in lines:
+        for ch in line:
+            counts[ch] += 1
+            if ch not in seen:
+                seen.add(ch)
+                seen_order.append(ch)
+    vocab = [ch for ch in seen_order if counts[ch] >= min_count]
+    return SPECIAL_TOKENS + vocab
+
+
+def load_vocab(path: str) -> List[str]:
+    """One token per line (train_hyperbolic_tokenizer.py:50-62)."""
+    with open_text(path) as f:
+        return [line.rstrip("\n") for line in f if line.rstrip("\n")]
+
+
+def save_vocab(vocab: List[str], path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        for tok in vocab:
+            f.write(tok + "\n")
+
+
+def initialize_embeddings(n: int, dim: int, curvature: float = 1.0,
+                          sigma: float = 0.01,
+                          seed: Union[int, torch.Generator] = 42,
+                          device=None) -> torch.Tensor:
+    """Tangent-Gaussian init at the origin -> exp map -> projection, as a
+    (n, dim+1) float32 tensor on ``device`` (default: the card).
+
+    ``seed`` is an int or a ``torch.Generator`` on ``device``. The numbers
+    differ from the JAX package's ``PRNGKey(seed)`` draws; the distribution
+    is the same (train_hyperbolic_tokenizer.py:64-107: sigma 0.01, zero
+    time coordinate in the tangent, final re-projection).
+    """
+    from hyptokenizer_tpu_torch import _device
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    dev = _device.resolve(device)
+    gen = seed
+    if not isinstance(seed, torch.Generator):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+    return L.random_points(gen, n, dim, c=curvature, sigma=sigma, device=dev)
 
 
 def read_corpus_lines(path: str) -> List[str]:

@@ -607,3 +607,26 @@ def test_kernel_selfcheck_passes_on_the_card(cuda):
     assert out["kernel_selfcheck_merges"] > 0
     assert out["enhanced_kernel_selfcheck_merges"] > 0
     assert out["enhanced_full_selfcheck_merges"] > 0
+
+
+def test_train_embeddings_on_the_card_matches_cpu(cuda):
+    """``tokenizer/embed_train.train_embeddings`` on the card against the
+    same run on the CPU, with the same draws (a CPU generator for both):
+    rows within ``rtol=1e-4, atol=1e-5`` and the loss traces too (float32
+    autograd; the card sums the gradient in another order), and a second
+    card run equal to the bit."""
+    from hyptokenizer_tpu_torch.tokenizer import embed_train as ET
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    emb0 = L.random_points(gen, 64, 16, sigma=0.5, device="cpu")
+    corpus = torch.from_numpy(np.random.default_rng(1).integers(
+        -2, 64, 2000).astype(np.int32))
+    runs = [ET.train_embeddings(emb0.to(dev), corpus, 64,
+                                ET.GeneratorSampler(5, "cpu"), steps=60,
+                                batch=256, negatives=5)
+            for dev in ("cpu", cuda, cuda)]
+    (e_cpu, l_cpu), (e_gpu, l_gpu), (e_again, _) = runs
+    assert torch.equal(e_gpu, e_again)  # reproducible on the card too
+    assert e_gpu.device.type == "cuda"
+    torch.testing.assert_close(e_gpu.cpu(), e_cpu, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-5)

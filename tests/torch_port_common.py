@@ -9,6 +9,7 @@ random draws (:class:`ReplaySampler` follows the JAX state's key chain).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hyptokenizer_tpu.ops import lorentz as JL
@@ -53,6 +54,18 @@ def make_pair(**overrides):
     return JaxTok(vocab, emb, **kw), TorchTok(vocab, emb, device="cpu", **kw)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch's intra-op threads for a module's tests: one. Their tensors are
+    tiny, and under the test workers' parallel run a pool per worker spends
+    its time spinning against the other workers' (a 0.3 s test took 27 s).
+    Imported by name into a test module, it applies to that module only."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 class ReplaySampler:
     """Hands the port the draws the JAX package makes from ``key``: the
     same splits, in the same order (enhanced_state.py:442, :386-415 and
@@ -85,6 +98,44 @@ class ReplaySampler:
             jax.random.randint(k1, (hp, hn), 0, h),
             jax.random.randint(k2, (ds,), 0, h),
             jax.random.randint(k3, (ds,), 0, h)))
+
+    def get_state(self):
+        """Key words and stats counter, as a checkpoint keeps a sampler's
+        state (utils/checkpoint.py)."""
+        key = [0, 0] if self.key is None else np.asarray(self.key).tolist()
+        return torch.tensor(key + [self.stats_key], dtype=torch.int64)
+
+    def set_state(self, state):
+        vals = state.tolist()
+        self.key = jnp.asarray(np.asarray(vals[:2], np.uint32))
+        self.stats_key = int(vals[2])
+
+
+class ReplayDraws:
+    """The embedding trainers' draws as the JAX trainers make them: each
+    step splits ``key`` in ``n_split`` (tokenizer/embed_train.py: 3 for
+    the ranking and ordinal trainers, 2 for stress) and draws once from
+    each subkey after the first, in order."""
+
+    def __init__(self, key, n_split=3):
+        self.key = key
+        self.n_split = n_split
+        self.pending = []
+
+    def _sub(self):
+        if not self.pending:
+            parts = jax.random.split(self.key, self.n_split)
+            self.key = parts[0]
+            self.pending = list(parts[1:])
+        return self.pending.pop(0)
+
+    def randint(self, shape, high):
+        return torch.from_numpy(np.array(jax.random.randint(
+            self._sub(), tuple(shape), 0, jnp.int32(high))))
+
+    def uniform(self, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            self._sub(), tuple(shape))))
 
 
 def history(st):
