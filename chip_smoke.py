@@ -92,12 +92,30 @@ Phases:
    run through ``main(argv)`` with the launch counts reset just before and
    read just after, each launch timed by ``KernelTimer``; (c) runs
    ``python -m`` processes;
-7. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
+7. the models phase (``models_phase``), the downstream CLIs through
+   ``main(argv)`` on (a)'s tokenizer (about 46,000 tokens), each load of
+   it launching K3 (counts reset just before each CLI and read just
+   after): (e) ``train_nlp_tasks --task both`` at its defaults (BERT
+   hidden 256, 4 layers, 4 heads, length 128, batch 16, 2000 lines, one
+   epoch, hyperbolic embeddings injected at the matched scale), held-out
+   lines for the perplexity and classification TSVs labelled by whether a
+   line holds a digit: perplexity and accuracy finite, the models on the
+   card, each model's forward on the card within ``FWD_TOL`` of a CPU copy's
+   on one batch; stage seconds, steps per second and peak memory; (f)
+   ``train_retrieval --synthetic`` at its defaults: the loss finite and
+   falling, R@1 recorded, ``best_params.pt`` loading back into the model;
+   (g) ``benchmark_efficiency`` on 1000 corpus lines (tokenize and encode
+   throughput on the host, the native encoder); (h)
+   ``compare_tokenizers`` against a 50,000-token ``bpe`` baseline from
+   ``train_baseline_tokenizers`` (alone when the ``tokenizers`` library
+   does not import);
+8. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
    and its bound at the fp32 rate outside the tensor cores: numbers
    computed from the shapes, not measured), a ``kernels`` JSON line
    (measured, with each kernel's ``bound_ms`` and its launches and event
    time on the full-depth paths, ``full_depth``, and its launches on the
-   CLI paths, ``launches_cli``), the card line, and the
+   CLI paths, ``launches_cli``, and K3's on the models phase,
+   ``launches_models``), the card line, and the
    last line ``{"ok": true, "device": {...}}``, printed only when every
    phase passed.
 
@@ -1389,6 +1407,266 @@ def cli_phase(work: str, lines):
     return res
 
 
+
+# The models phase: the downstream CLIs at their defaults (train_nlp_tasks:
+# hidden 256, 4 layers, 4 heads, --max-length 128, batch 16, --max-lines
+# 2000, 1 epoch; train_retrieval --synthetic: tower 128, depth 2,
+# projection 64, batch 32, image 64, seq 32, 2 epochs of 20 batches).
+NLP_LINES = 2000          # train_nlp_tasks' --max-lines
+HELD_OUT = slice(4000, 4500)   # corpus lines none of the training reads
+BENCH_LINES = 1000        # benchmark_efficiency's --max-lines
+FWD_TOL = 1e-4            # card vs CPU forward, fp32 with TF32 off
+STAGES = (("TokenizerAdapter", "load"), ("get_embeddings", "export"),
+          ("batch_encode", "encode"), ("build_bert_mlm", "build"),
+          ("build_bert_classifier", "build"), ("_adamw", "optimizer"),
+          ("mlm_eval", "mlm_eval"),
+          ("mlm_train", "mlm_train"),
+          ("classification_train", "classification_train"))
+
+
+class StageClock:
+    """Seconds of the downstream stages: ``models.nlp``'s functions and the
+    adapter's methods wrapped with a card synchronisation on each side
+    (nested stages count in both). Keeps the last adapter built, and the
+    host clock at each batch ``make_batches`` hands out (after a
+    synchronisation: the previous step has ended), one list per call."""
+
+    def __init__(self):
+        from hyptokenizer_tpu_torch.models import nlp
+        self.seconds, self.patched, self.adapter = {}, [], None
+        self.batch_clock = []
+        adapter_cls = nlp.TokenizerAdapter
+        for name, stage in STAGES:
+            owner = adapter_cls if name in (
+                "get_embeddings", "batch_encode") else nlp
+            self._wrap(owner, name, stage)
+        batches = nlp.make_batches
+
+        def clocked(*args, **kw):
+            marks = []
+            self.batch_clock.append(marks)
+            for batch in batches(*args, **kw):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                yield batch
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        nlp.make_batches = clocked
+        self.patched.append((nlp, "make_batches", batches))
+
+    def _wrap(self, owner, name, stage):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds[stage] = (self.seconds.get(stage, 0.0)
+                                   + time.perf_counter() - t0)
+            if name == "TokenizerAdapter":
+                self.adapter = out
+            return out
+
+        setattr(owner, name, timed)
+        self.patched.append((owner, name, fn))
+
+    def close(self):
+        for owner, name, fn in self.patched:
+            setattr(owner, name, fn)
+
+
+def check_forward(model, batch, what):
+    """The trained model's forward on the card against a CPU copy's on the
+    same batch; returns the largest absolute difference."""
+    import copy
+    ids, mask = (torch.from_numpy(a).long() for a in batch)
+    with torch.no_grad():
+        got = model(ids.cuda(), mask.cuda()).cpu()
+        want = copy.deepcopy(model).cpu()(ids, mask)
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite logits on the card")
+    if not torch.allclose(got, want, rtol=FWD_TOL, atol=FWD_TOL):
+        fail(f"{what}: card and CPU forwards differ by "
+             f"{float((got - want).abs().max()):.3g}")
+    return float((got - want).abs().max())
+
+
+def models_phase(work: str):
+    """The downstream models and the evaluation CLIs on the Quick start's
+    tokenizer (``work/quickstart``, about 46,000 tokens, loaded by the base
+    class as the JAX CLIs load it; each load runs K3 in its constructor,
+    over the initial vocabulary):
+    (e) ``train_nlp_tasks --task both`` at its defaults with hyperbolic
+    embeddings, on ``work/corpus.txt`` with held-out lines and
+    classification TSVs labelled by whether the line holds a digit; (f)
+    ``train_retrieval --synthetic`` at its defaults; (g)
+    ``benchmark_efficiency`` on 1000 corpus lines; (h) ``compare_tokenizers``
+    against a ``bpe`` baseline from ``train_baseline_tokenizers`` (or alone
+    when the ``tokenizers`` library does not import). Returns the phase's
+    numbers."""
+    import re
+
+    import numpy as np
+
+    from hyptokenizer_tpu_torch.cli import benchmark_efficiency as TBE
+    from hyptokenizer_tpu_torch.cli import compare_tokenizers as TCT
+    from hyptokenizer_tpu_torch.cli import train_baseline_tokenizers as TTB
+    from hyptokenizer_tpu_torch.cli import train_nlp_tasks as TN
+    from hyptokenizer_tpu_torch.cli import train_retrieval as TR
+    from hyptokenizer_tpu_torch.models import (
+        MultimodalHyperbolicModel, TransformerTower, ViTTower, nlp)
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+
+    corpus = os.path.join(work, "corpus.txt")
+    tok_dir = os.path.join(work, "quickstart")
+    with open(corpus, encoding="utf-8") as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    held = lines[HELD_OUT]
+    val_text = os.path.join(work, "val.txt")
+    with open(val_text, "w", encoding="utf-8") as f:
+        f.write("\n".join(held) + "\n")
+    tsv = {}
+    for split, part in (("train", lines[:NLP_LINES]), ("val", held)):
+        tsv[split] = os.path.join(work, f"{split}.tsv")
+        with open(tsv[split], "w", encoding="utf-8") as f:
+            for ln in part:
+                label = int(bool(re.search(r"[0-9]", ln)))
+                f.write(f"{label}\t{ln.replace(chr(9), ' ')}\n")
+    res = {}
+
+    def k3_launches(name, fn):
+        K3.reset_launches()
+        timer = KernelTimer()
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            timed = timer.collect()
+        finally:
+            timer.close()
+        res[name] = {"wall_s": wall, "k3_launches": K3.launches,
+                     "k3_event_ms": timed.get("pairwise_min_best",
+                                              {}).get("event_ms")}
+        if K3.launches <= 0:
+            fail(f"{name}: loading the tokenizer never launched K3")
+        return out
+
+    # (e) BERT MLM and classification
+    clock = StageClock()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        results, models = k3_launches("nlp", lambda: TN.main([
+            "--method", "hyperbolic", "--model-path", tok_dir,
+            "--task", "both", "--train-text", corpus, "--val-text",
+            val_text, "--train-cls", tsv["train"], "--val-cls", tsv["val"],
+            "--output-dir", os.path.join(work, "nlp")]))
+    finally:
+        clock.close()
+    e = res["nlp"]
+    e.update(results, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+             stages=dict(clock.seconds))
+    ppl = results.get("mlm_val_perplexity")
+    acc = results.get("classification_val_accuracy")
+    if ppl is None or not np.isfinite(ppl) or acc is None \
+            or not 0.0 <= acc <= 1.0:
+        fail(f"train_nlp_tasks: results {results}")
+    for task, model in models.items():
+        if any(p.device.type != "cuda" for p in model.parameters()):
+            fail(f"train_nlp_tasks: the {task} model is not on the card")
+    steps = NLP_LINES // 16
+    e["vocab"] = clock.adapter.get_vocab_size()
+    e["mlm_steps_per_s"] = steps / (clock.seconds["mlm_train"]
+                                    - clock.seconds["mlm_eval"])
+    marks = clock.batch_clock[0]          # mlm_train's one epoch
+    e["mlm_first_step_s"] = marks[1] - marks[0]
+    e["mlm_steady_steps_per_s"] = (len(marks) - 2) / (marks[-1] - marks[1])
+    e["classification_steps_per_s"] = (steps
+                                       / clock.seconds["classification_train"])
+    enc = clock.adapter.batch_encode(held[:16], max_length=128)
+    batch = next(nlp.make_batches(enc, 16, 128))
+    e["forward_max_abs_err"] = {
+        task: check_forward(model, batch, f"train_nlp_tasks {task}")
+        for task, model in models.items()}
+    del models, clock
+    print(f"models (e) train_nlp_tasks: {json.dumps(e)}", flush=True)
+
+    # (f) two-tower retrieval on the synthetic task
+    t0 = time.perf_counter()
+    out_f = os.path.join(work, "retrieval")
+    torch.cuda.reset_peak_memory_stats()
+    ret = TR.main(["--synthetic", "--output-dir", out_f])
+    torch.cuda.synchronize()
+    hist = ret["history"]
+    losses = [h["loss"] for h in hist]
+    f_res = res["retrieval"] = dict(
+        wall_s=time.perf_counter() - t0, losses=losses,
+        r1=[h.get("text_to_image_r@1") for h in hist],
+        best_r1=ret["best"]["r1"],
+        peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"train_retrieval: the loss did not fall: {losses}")
+    if any(r is None for r in f_res["r1"]) or f_res["best_r1"] < 0:
+        fail(f"train_retrieval: R@1 not recorded: {f_res}")
+    best = torch.load(os.path.join(out_f, "best_params.pt"),
+                      weights_only=True)
+    fresh = MultimodalHyperbolicModel(
+        text_encoder=TransformerTower(vocab_size=256, dim=128, depth=2,
+                                      heads=4, max_len=32),
+        image_encoder=ViTTower(image_size=64, patch_size=8, dim=128,
+                               depth=2, heads=4),
+        projection_dim=64, hidden_dim=256)
+    fresh.load_state_dict(best)
+    print(f"models (f) train_retrieval: {json.dumps(f_res)}", flush=True)
+
+    # (g) tokenize and encode throughput (host side, the native encoder)
+    eff = k3_launches("benchmark_efficiency", lambda: TBE.main([
+        "--tokenizer-dir", tok_dir, "--text-path", corpus,
+        "--max-lines", str(BENCH_LINES),
+        "--output-path", os.path.join(work, "efficiency.json")]))
+    g = res["benchmark_efficiency"]
+    for path in ("tokenize", "encode"):
+        r = eff[path]
+        if not r["tokens_per_sec"] > 0:
+            fail(f"benchmark_efficiency: {path} {r}")
+        g[path] = {k: r[k] for k in ("tokens_per_sec", "chars_per_sec",
+                                     "total_tokens", "avg_seconds",
+                                     "std_seconds")}
+    print(f"models (g) benchmark_efficiency: {json.dumps(g)}", flush=True)
+
+    # (h) compare against a BPE baseline (HF tokenizers, a CPU library)
+    specs = ["--tokenizer", f"hyperbolic={tok_dir}"]
+    try:
+        import tokenizers  # noqa: F401
+        have_hf = True
+    except ImportError:
+        have_hf = False
+        print("models (h): the tokenizers library does not import here; "
+              "the hyperbolic tokenizer is compared alone", flush=True)
+    if have_hf:
+        base = TTB.main(["--input-file", corpus, "--output-dir",
+                         os.path.join(work, "baselines"), "--vocab-size",
+                         "50000", "--kinds", "bpe"])
+        specs += ["--tokenizer", f"bpe={base['bpe_50000']['path']}"]
+    cmp = k3_launches("compare_tokenizers", lambda: TCT.main(
+        specs + ["--text-path", corpus, "--output-dir",
+                 os.path.join(work, "compare"), "--no-plot"]))
+    h = res["compare_tokenizers"]
+    h["tokenizers_library"] = have_hf
+    for name, r in cmp.items():
+        if not r["throughput"]["tokens_per_sec"] > 0:
+            fail(f"compare_tokenizers: {name} {r}")
+        h[name] = {"tokens_per_sec": r["throughput"]["tokens_per_sec"],
+                   "chars_per_token": r["compression"]["chars_per_token"],
+                   "word_boundary_ratio":
+                       r["quality"]["word_boundary_ratio"],
+                   "morpheme_ratio": r["quality"]["morpheme_ratio"]}
+    print(f"models (h) compare_tokenizers: {json.dumps(h)}", flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1576,6 +1854,9 @@ def main() -> None:
         t0 = time.perf_counter()
         cli = cli_phase(work, lines)
         cli_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mod = models_phase(work)
+        models_s = time.perf_counter() - t0
     q, fl, rs, b = (cli["quickstart"], cli["flagship"], cli["resume"],
                     cli["train_tokenizer"])
     cli_kernels = {path: rec["kernels"] for path, rec in cli.items()
@@ -1599,6 +1880,15 @@ def main() -> None:
         k["launches_cli"] = {path: rec["launches"][name]
                              for path, rec in cli.items()
                              if name in rec.get("launches", {})}
+    k3["launches_models"] = {path: rec["k3_launches"]
+                             for path, rec in mod.items()
+                             if "k3_launches" in rec}
+    print(f"models phase {models_s:.1f} s: train_nlp_tasks "
+          f"{mod['nlp']['wall_s']:.2f} s, train_retrieval "
+          f"{mod['retrieval']['wall_s']:.2f} s, benchmark_efficiency "
+          f"{mod['benchmark_efficiency']['wall_s']:.2f} s, "
+          f"compare_tokenizers {mod['compare_tokenizers']['wall_s']:.2f} s; "
+          f"K3 launches {json.dumps(k3['launches_models'])}", flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

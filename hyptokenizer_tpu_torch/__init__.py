@@ -7,8 +7,9 @@ Its tests hold each module to its JAX counterpart.
 
 Ported so far: corpus-only, all-features and distance-only training, the
 enhanced configurations, encoding, the geometry, the kernels' selfcheck,
-the bench, the device CLI, and the training CLIs with embedding
-pretraining, hierarchy supervision, checkpoint and resume:
+the bench, the device CLI, the training CLIs with embedding pretraining,
+hierarchy supervision, checkpoint and resume, and the downstream models
+with the evaluation CLIs:
 
 - ``ops.lorentz``, ``ops.poincare`` — hyperbolic geometry
 - ``ops.cuda.enhanced_loop``— kernels K1 and K2, the scored merge segment
@@ -25,12 +26,20 @@ pretraining, hierarchy supervision, checkpoint and resume:
 - ``tokenizer.embed_train`` — RSGD embedding pretraining and supervision
 - ``evals.selfcheck``       — kernels held to their plain versions
 - ``evals.hierarchy``       — WordNet hierarchy distortion
+- ``evals.comparison``      — tokenizer throughput, quality, compression
+- ``evals.baselines``       — HF ``tokenizers`` and SentencePiece baselines
+- ``models``                — hyperbolic losses and Recall@K, BERT MLM and
+                              classification (``models.nlp``), the
+                              two-tower model (``models.multimodal``) and
+                              retrieval training (``models.retrieval``)
 - ``bench``                 — ``bench.py``'s workloads at full depth
-- ``cli``                   — the training CLIs, ``test_torch`` (device
-                              smoke test and kernel check)
+- ``cli``                   — the training and evaluation CLIs,
+                              ``test_torch`` (device smoke test and kernel
+                              check)
 - ``utils``                 — data helpers, ``TrainConfig``, metrics,
                               checkpoints
-- ``convert``               — states to and from the JAX package's layout
+- ``convert``               — states to and from the JAX package's
+                              layout, and the models' Flax parameters
 """
 
 __version__ = "0.1.0"

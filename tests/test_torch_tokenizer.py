@@ -212,9 +212,23 @@ def test_import_leaves_jax_out():
         "import hyptokenizer_tpu_torch.cli.train_enhanced_tokenizer\n"
         "import hyptokenizer_tpu_torch.cli.train_graph_embeddings\n"
         "import hyptokenizer_tpu_torch.cli.eval_hierarchy\n"
+        "import hyptokenizer_tpu_torch.models\n"
+        "import hyptokenizer_tpu_torch.models.nlp\n"
+        "import hyptokenizer_tpu_torch.models.retrieval\n"
+        "import hyptokenizer_tpu_torch.evals.baselines\n"
+        "import hyptokenizer_tpu_torch.cli.train_nlp_tasks\n"
+        "import hyptokenizer_tpu_torch.cli.train_retrieval\n"
+        "import hyptokenizer_tpu_torch.cli.analysis\n"
+        "import hyptokenizer_tpu_torch.cli.benchmark_efficiency\n"
+        "import hyptokenizer_tpu_torch.cli.compare_tokenizers\n"
+        "import hyptokenizer_tpu_torch.cli.train_baseline_tokenizers\n"
+        "import hyptokenizer_tpu_torch.cli.build_wordnet_graph\n"
+        "import hyptokenizer_tpu_torch.cli.download_data\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'hyptokenizer_tpu.')) or m == 'hyptokenizer_tpu'"
-        " or m.split('.')[0] in ('flax', 'orbax', 'networkx', 'nltk')]\n"
+        " or m.split('.')[0] in ('flax', 'orbax', 'networkx', 'nltk',"
+        " 'optax', 'transformers', 'tokenizers', 'sentencepiece',"
+        " 'matplotlib')]\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
