@@ -109,19 +109,42 @@ Phases:
    ``compare_tokenizers`` against a 50,000-token ``bpe`` baseline from
    ``train_baseline_tokenizers`` (alone when the ``tokenizers`` library
    does not import);
-8. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
+8. the parallel phase (``parallel_phase``), the sharded training of
+   ``hyptokenizer_tpu_torch/parallel/``: (a) the flagship's flags of
+   (b) through ``train_enhanced_tokenizer --mesh`` at a world of one under
+   NCCL, full depth and width: the path must be the v3 sync, K1 must
+   launch (counts reset just before, read just after) and the merge
+   history must equal the unsharded CLI run's (b); (b) two ranks on the
+   card under gloo (this script with ``--parallel-rank``, two processes
+   meeting at a localhost coordinator): ``bench_scaling --multihost`` for
+   the base loop (K3, K4) and the enhanced loop (K1) at its own 8,192
+   slots and 2,000 lines, d=100, and the all-features configuration at
+   8,192 slots on those lines (K3, K2 reading the v3 sync's hashed table
+   at D = 2), each rank's kernels counted in its process; both ranks'
+   histories must equal each other's and then one process's on the card;
+   (c) K2 with ``n_buckets = 4`` (``check_k2_hashed``, run beside K2's
+   depth check on its 49,152-row state: the v3 layout for 4 ranks, held to
+   the plain version step by step, timed against the lexicographic table);
+   (d) ``bench_scaling`` at a world of one for both loops (the references
+   of (b)); (e) one int32 ``all_reduce``'s latency under NCCL at a world
+   of one and under gloo at a world of two;
+9. a ``computed`` JSON line (K1's shared-memory plan, K3's tile plans
    and its bound at the fp32 rate outside the tensor cores: numbers
-   computed from the shapes, not measured), a ``kernels`` JSON line
+   computed from the shapes, not measured), a ``collectives_us`` line
+   (e), a ``kernels`` JSON line
    (measured, with each kernel's ``bound_ms`` and its launches and event
    time on the full-depth paths, ``full_depth``, and its launches on the
-   CLI paths, ``launches_cli``, and K3's on the models phase,
-   ``launches_models``), the card line, and the
+   CLI paths, ``launches_cli``, K3's on the models phase,
+   ``launches_models``, and every kernel's on the parallel phase,
+   ``launches_parallel``; K2's hashed lookup under ``hashed``), the card
+   line, and the
    last line ``{"ok": true, "device": {...}}``, printed only when every
    phase passed.
 
 Exits nonzero, printing no result, without a CUDA device, without the
 port's package beside this file, on any failed check, or when the
-watchdog fires.
+watchdog fires. (``--parallel-rank R --coordinator HOST:PORT --out FILE``
+runs one rank of phase 8; the phase starts them.)
 """
 
 import dataclasses
@@ -504,6 +527,75 @@ def check_k2_depth(tok):
         max_abs_err=out["k2d_row_err"],
         row_err_over_tol=out["k2d_row_err_over_tol"],
         gram_gap_over_bound=out["k2d_gram_gap_over_bound"])
+
+
+K2_HASHED_D = 4   # (c) of the parallel phase: the v3 layout for 4 ranks
+
+
+def check_k2_hashed(tok):
+    """Kernel K2 reading a hash-partitioned pair table (n_buckets =
+    ``K2_HASHED_D``, the layout the v3 sharded sync leaves for that many
+    ranks, ``parallel.sharded.hash_partition_table``) on the depth state of
+    ``check_k2_depth``: held to its plain version step by step over one
+    segment, and one segment timed against the same segment on the
+    lexicographic table (lex, hashed, hashed, lex)."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.parallel.sharded import hash_partition_table
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    cfg = tok.enh_config
+    cfg_h = dataclasses.replace(cfg, pair_table_hashed=K2_HASHED_D)
+
+    def hashed(st):
+        keys, counts = hash_partition_table(st.pair_keys, st.pair_counts,
+                                            K2_HASHED_D)
+        return dataclasses.replace(st, pair_keys=keys, pair_counts=counts)
+
+    deep = selfcheck.pad_dense_state(tok.enh_state, K2_DEPTH_ROWS)
+    st0 = E.sync_corpus(E.clone_state(deep), cfg, E.TorchSampler(1, "cuda"))
+    st0h = hashed(E.clone_state(st0))
+    dropped = int((st0.pair_counts > 0).sum()) - \
+        int((st0h.pair_counts > 0).sum())
+    sc = E.state_scalars(st0)
+    freq = cfg.curvature_freq
+    budgets = (sc["num_merges"] + LOG_EVERY,
+               sc["step"] + LOG_EVERY + 1024,
+               (sc["curv_last"] // freq + 1) * freq)
+    lex_ms, hashed_ms = [], []
+    for which in ("lex", "hashed", "hashed", "lex"):
+        if which == "lex":
+            ms, sk_lex = time_segment(st0, cfg, budgets)
+            lex_ms.append(ms)
+        else:
+            ms, sk = time_segment(st0h, cfg_h, budgets)
+            hashed_ms.append(ms)
+    ek = E.state_scalars(sk)
+    n = ek["num_merges"] - sc["num_merges"]
+    steps = ek["step"] - sc["step"]
+    if n <= 0 or steps <= 0:
+        fail(f"the hashed K2 segment ran {steps} steps and {n} merges")
+    same = torch.equal(sk.base.merges, sk_lex.base.merges)
+    if dropped == 0 and not same:
+        fail("K2 on the hashed table merged otherwise than on the "
+             "lexicographic table holding the same pairs")
+    out = {}
+    holder = types.SimpleNamespace(enh_state=deep, enh_config=cfg_h)
+    selfcheck._lockstep_steps(
+        holder, 1, out, "k2h", row_atol=ROW_ATOL,
+        sync=lambda st, c, s: hashed(E.sync_corpus(st, c, s)))
+    if out["k2h"] != "pass":
+        fail(f"K2 with n_buckets={K2_HASHED_D} against its plain version: "
+             f"{out['k2h']}")
+    ms, lms = sum(hashed_ms) / 2, sum(lex_ms) / 2
+    return dict(
+        n_buckets=K2_HASHED_D, rows=sc["vocab_size"], segment_merges=n,
+        segment_steps=steps, ms=ms, us_per_step=ms * 1e3 / steps,
+        lex_ms=lms, lex_us_per_step=lms * 1e3 / steps,
+        same_merges_as_lex=same, pairs_dropped=dropped,
+        lockstep=out["k2h"], lockstep_merges=out["k2h_merges"],
+        lockstep_steps=out["k2h_steps"], reorders=out["k2h_reorders"],
+        max_abs_err=out["k2h_row_err"],
+        row_err_over_tol=out["k2h_row_err_over_tol"])
 
 
 def gate_k3(emb, vocab, c, bd, bj):
@@ -1667,6 +1759,275 @@ def models_phase(work: str):
     return res
 
 
+
+# The parallel phase: the sharded training of parallel/ on the one card.
+# (a) the flagship's CLI flags with --mesh (a world of one under NCCL);
+# (b) two ranks on the card under gloo (NCCL refuses two ranks on one
+# device): bench_scaling --multihost for both loops at its own 8,192 slots
+# and 2,000 lines, and an all-features run (the dense channel: K2 reads the
+# v3 sync's hashed table at D = 2), each against one process on the card;
+# (c) K2 with n_buckets = 4 (check_k2_hashed, on the depth state);
+# (d) bench_scaling at a world of one; (e) one int32 all_reduce under NCCL
+# at a world of one and under gloo at a world of two.
+PAR_RANKS = 2
+PAR_LINES = 2000                  # bench_scaling's corpus slice
+PAR_SLOTS = 8192                  # bench_scaling's enhanced slots
+PAR_ALL_STEPS = 2048
+PAR_ALL_CHUNK = 512
+PAR_BENCH = {"base": ["--max-vocab-size", str(PAR_SLOTS), "--steps", "2048",
+                      "--warmup", "128"],
+             "enhanced": ["--loop", "enhanced", "--steps", "2048",
+                          "--corpus-shards", str(PAR_RANKS)]}
+COLLECTIVE_REPS = 200
+KERNELS = ("enhanced_loop", "enhanced_loop_dense", "pairwise_min_best",
+           "merge_loop")
+
+
+def launch_counts() -> dict:
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+    return dict(zip(KERNELS, (K12.launches, K12.dense_launches, K3.launches,
+                              K4.launches)))
+
+
+def reset_counts() -> None:
+    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
+    from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
+    from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+    for mod in (K12, K3, K4):
+        mod.reset_launches()
+
+
+def par_all_features(lines, mesh):
+    """bench.py bench_allfeatures' configuration at PAR_SLOTS slots on
+    PAR_LINES lines, its corpus aligned for PAR_RANKS ranks, trained
+    PAR_ALL_STEPS merges (both phase switches): (tokenizer, seconds)."""
+    from hyptokenizer_tpu_torch import bench
+    from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
+    vocab, emb = bench.char_points(lines, torch.device("cuda"))
+    kw = dict(bench.ALLFEATURES, max_vocab_size=PAR_SLOTS,
+              corpus_shards=PAR_RANKS)
+    tok = EnhancedHyperbolicTokenizer(vocab, emb, corpus_sample=lines,
+                                      device="cuda", mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok.optimize_merges(steps=PAR_ALL_STEPS, log_every=PAR_ALL_CHUNK,
+                        phase_transition_steps={2: 1000, 3: 6000})
+    torch.cuda.synchronize()
+    return tok, time.perf_counter() - t0
+
+
+def run_bench_scaling(loop: str, extra=()):
+    """bench_scaling.main on one loop: (steps/s, merge history, launches,
+    seconds), the launch counts reset just before it."""
+    from hyptokenizer_tpu_torch.cli import bench_scaling
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bench_scaling.main(PAR_BENCH[loop] + list(extra))
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    (n, sps), = res["steps_per_sec_by_devices"].items()
+    base = res["states"][n]
+    hist = base.merges[:int(base.num_merges)].tolist()
+    return sps, hist, launch_counts(), took
+
+
+def collective_us(fn, reps: int = COLLECTIVE_REPS) -> float:
+    """Median host microseconds of ``fn()`` followed by a card
+    synchronisation, after 20 warm-up calls."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return sorted(times)[len(times) // 2]
+
+
+def parallel_child(rank: int, coordinator: str, out_path: str) -> None:
+    """One of PAR_RANKS ranks on the card under gloo: (b)'s runs and the
+    gloo all_reduce latency, written to ``out_path`` as JSON."""
+    from hyptokenizer_tpu_torch.parallel import mesh as M
+    from hyptokenizer_tpu_torch.parallel.multihost import (
+        global_mesh, initialize_multihost)
+    from hyptokenizer_tpu_torch.parallel.sharded import select_sync_path
+    from hyptokenizer_tpu_torch.utils import data
+
+    initialize_multihost(coordinator_address=coordinator,
+                         num_processes=PAR_RANKS, process_id=rank,
+                         backend="gloo", device="cuda")
+    mesh = global_mesh("cuda", backend="gloo")
+    rec = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend}
+    flags = ["--multihost", "--dist-backend", "gloo"]
+    for loop in ("base", "enhanced"):
+        sps, hist, counts, took = run_bench_scaling(loop, flags)
+        rec[loop] = dict(steps_per_s=sps, merges=hist, launches=counts,
+                         seconds=took)
+    lines = data.read_corpus_lines(CORPUS)[:PAR_LINES]
+    reset_counts()
+    tok, took = par_all_features(lines, mesh)
+    rec["all_features"] = dict(
+        merges=tok.merge_history, launches=launch_counts(), seconds=took,
+        path=select_sync_path(tok.enh_state, tok.enh_config, mesh),
+        syncs=[s["chunk_syncs"] for s in tok.training_stats])
+    one = torch.ones((1,), dtype=torch.int32, device="cuda")
+    rec["gloo_all_reduce_us"] = collective_us(
+        lambda: M.all_reduce(mesh, one))
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(work: str, lines):
+    """(a)-(e) above. Returns the phase's numbers."""
+    import torch.distributed as dist
+
+    from hyptokenizer_tpu_torch.cli import train_enhanced_tokenizer as TE
+    from hyptokenizer_tpu_torch.parallel.sharded import select_sync_path
+
+    res = {}
+    # (a) the flagship through --mesh at a world of one (NCCL).
+    corpus = os.path.join(work, "corpus.txt")
+    out_a = os.path.join(work, "flagship_mesh")
+    reset_counts()
+    timer = KernelTimer()
+    try:
+        t0 = time.perf_counter()
+        tok = TE.main(["--corpus-path", corpus, "--output-dir", out_a,
+                       "--mesh"] + FLAGSHIP_CLI)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed = timer.collect()
+    finally:
+        timer.close()
+    counts = launch_counts()
+    if counts["enhanced_loop"] <= 0:
+        fail("the sharded flagship (--mesh) never launched enhanced_loop")
+    path = select_sync_path(tok.enh_state, tok.enh_config, tok.mesh)
+    if (tok.mesh.size, tok.mesh.backend, path) != (1, "nccl", "v3"):
+        fail(f"the sharded flagship ran on {tok.mesh.size} ranks under "
+             f"{tok.mesh.backend} through {path}, not one NCCL rank and v3")
+    with open(os.path.join(out_a, "merges.json")) as f:
+        sharded = f.read()
+    with open(os.path.join(work, "flagship", "merges.json")) as f:
+        unsharded = f.read()
+    if sharded != unsharded:
+        fail("the sharded flagship's merges differ from the unsharded CLI "
+             "run's")
+    res["flagship_mesh"] = dict(
+        path=path, wall_s=wall, merges=len(tok.merge_history),
+        launches={"enhanced_loop": counts["enhanced_loop"]},
+        kernels={k: v for k, v in timed.items() if k == "enhanced_loop"},
+        syncs=sum(s["chunk_syncs"] for s in tok.training_stats))
+    print(f"parallel (a) flagship --mesh: path {path} (world 1, nccl), "
+          f"{json.dumps(res['flagship_mesh'])}; merges equal the "
+          f"unsharded CLI run's", flush=True)
+    del tok
+
+    # (b) two ranks on the card under gloo, started together.
+    coord = f"127.0.0.1:{free_port()}"
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(PAR_RANKS)]
+    logs = [os.path.join(work, f"rank{r}.log") for r in range(PAR_RANKS)]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(PAR_RANKS):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--parallel-rank", str(r), "--coordinator", coord,
+                     "--out", outs[r]], cwd=HERE, stdout=log,
+                    stderr=subprocess.STDOUT, env=env))
+        for p in procs:
+            p.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fail("the two gloo ranks took over 300 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    # Then one process on the card, alone: the references, which are (d).
+    ref = {}
+    for loop in ("base", "enhanced"):
+        sps, hist, counts, took = run_bench_scaling(loop)
+        ref[loop] = dict(steps_per_s=sps, merges=hist, launches=counts,
+                         seconds=took)
+    reset_counts()
+    tok, took = par_all_features(lines[:PAR_LINES], None)
+    ref["all_features"] = dict(merges=tok.merge_history,
+                               launches=launch_counts(), seconds=took)
+    del tok
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[r]) as f:
+                fail(f"gloo rank {r} exited {p.returncode}:\n"
+                     f"{f.read()[-3000:]}")
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    need = {"base": ("merge_loop", "pairwise_min_best"),
+            "enhanced": ("enhanced_loop",),
+            "all_features": ("enhanced_loop_dense", "pairwise_min_best")}
+    for what, kernels in need.items():
+        hist = [[list(m) for m in rk[what]["merges"]] for rk in ranks]
+        single = [list(m) for m in ref[what]["merges"]]
+        if not len(single) > 0:
+            fail(f"parallel (b) {what}: the single process merged nothing")
+        if any(h != single for h in hist):
+            fail(f"parallel (b) {what}: the ranks' merges "
+                 f"({[len(h) for h in hist]}) differ from each other or "
+                 f"from one process's ({len(single)})")
+        for rk in ranks:
+            for k in kernels:
+                if rk[what]["launches"][k] <= 0:
+                    fail(f"parallel (b) {what}: rank {rk['rank']} never "
+                         f"launched {k}")
+    if any(rk["all_features"]["path"] != "v3" for rk in ranks):
+        fail(f"parallel (b): the all-features run took "
+             f"{[rk['all_features']['path'] for rk in ranks]}, not v3")
+    res["two_ranks"] = dict(
+        seconds=ranks_s,
+        ranks=[{w: {k: v for k, v in rk[w].items() if k != "merges"}
+                for w in need} for rk in ranks],
+        merges={w: len(ref[w]["merges"]) for w in need})
+    res["world_one"] = {w: {k: v for k, v in ref[w].items() if k != "merges"}
+                        for w in need}
+    print(f"parallel (b) two gloo ranks on the card, {ranks_s:.1f} s: "
+          f"merges equal each other's and one process's "
+          f"({json.dumps(res['two_ranks']['merges'])}); all-features path "
+          f"v3 (K2 hashed, D = 2); ranks {json.dumps(res['two_ranks']['ranks'])}",
+          flush=True)
+    print(f"parallel (d) bench_scaling at a world of one: base "
+          f"{ref['base']['steps_per_s']:.1f} steps/s, enhanced "
+          f"{ref['enhanced']['steps_per_s']:.1f} merges/s; single process "
+          f"{json.dumps(res['world_one'])}", flush=True)
+
+    # (e) the collectives' latency.
+    one = torch.ones((1,), dtype=torch.int32, device="cuda")
+    res["nccl_all_reduce_us"] = collective_us(lambda: dist.all_reduce(one))
+    res["gloo_all_reduce_us"] = [rk["gloo_all_reduce_us"] for rk in ranks]
+    print(f"parallel (e) one int32 all_reduce: NCCL at a world of one "
+          f"{res['nccl_all_reduce_us']:.2f} us, gloo at a world of two "
+          f"(staged through the host) {res['gloo_all_reduce_us']} us "
+          f"(median of {COLLECTIVE_REPS}, host clock)", flush=True)
+    dist.destroy_process_group()
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1766,6 +2127,17 @@ def main() -> None:
           f"{k2d['partner_ties']} row_err_over_tol "
           f"{k2d['row_err_over_tol']:.3g} gram_gap_over_bound "
           f"{k2d['gram_gap_over_bound']:.3g}", flush=True)
+    k2["hashed"] = k2h = check_k2_hashed(tok)
+    print(f"K2 hashed (n_buckets {k2h['n_buckets']}) at {k2h['rows']} rows: "
+          f"lockstep {k2h['lockstep']} over {k2h['lockstep_merges']} merges "
+          f"in {k2h['lockstep_steps']} steps (reorders {k2h['reorders']}, "
+          f"row_err_over_tol {k2h['row_err_over_tol']:.3g}); segment of "
+          f"{k2h['segment_merges']} merges in {k2h['segment_steps']} steps: "
+          f"hashed {k2h['ms']:.3f} ms ({k2h['us_per_step']:.3f} us per "
+          f"step), lexicographic {k2h['lex_ms']:.3f} ms "
+          f"({k2h['lex_us_per_step']:.3f} us per step), same merges "
+          f"{k2h['same_merges_as_lex']}, pairs dropped "
+          f"{k2h['pairs_dropped']}", flush=True)
     k3, computed["pairwise_min_best"] = check_k3(
         int(start.base.vocab_size))
     k3["launches"] = alls["launches"]["pairwise_min_best"]
@@ -1857,6 +2229,9 @@ def main() -> None:
         t0 = time.perf_counter()
         mod = models_phase(work)
         models_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        par = parallel_phase(work, lines)
+        par_s = time.perf_counter() - t0
     q, fl, rs, b = (cli["quickstart"], cli["flagship"], cli["resume"],
                     cli["train_tokenizer"])
     cli_kernels = {path: rec["kernels"] for path, rec in cli.items()
@@ -1889,6 +2264,21 @@ def main() -> None:
           f"{mod['benchmark_efficiency']['wall_s']:.2f} s, "
           f"compare_tokenizers {mod['compare_tokenizers']['wall_s']:.2f} s; "
           f"K3 launches {json.dumps(k3['launches_models'])}", flush=True)
+    print(f"parallel phase {par_s:.1f} s", flush=True)
+    fl_mesh = par["flagship_mesh"]["launches"]
+    for k, name in ((k1, "enhanced_loop"), (k2, "enhanced_loop_dense"),
+                    (k3, "pairwise_min_best"), (k4, "merge_loop")):
+        k["launches_parallel"] = {
+            "flagship_mesh": fl_mesh.get(name, 0),
+            "rank0": {w: rec["launches"][name] for w, rec in
+                      par["two_ranks"]["ranks"][0].items()},
+            "world_one": {w: rec["launches"][name] for w, rec in
+                          par["world_one"].items()}}
+    k1["flagship_mesh"] = par["flagship_mesh"]["kernels"].get(
+        "enhanced_loop")
+    print(json.dumps({"collectives_us": {
+        "nccl_world_one": par["nccl_all_reduce_us"],
+        "gloo_world_two": par["gloo_all_reduce_us"]}}), flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
@@ -1899,4 +2289,13 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--parallel-rank" in sys.argv:
+        # A rank of the parallel phase (parallel_phase starts two).
+        if HERE not in sys.path:
+            sys.path.insert(0, HERE)
+        argv = sys.argv
+        parallel_child(int(argv[argv.index("--parallel-rank") + 1]),
+                       argv[argv.index("--coordinator") + 1],
+                       argv[argv.index("--out") + 1])
+    else:
+        main()

@@ -5,11 +5,11 @@ torch, numpy and the standard library only (and the repo's ``native/``
 encoder through ctypes); it never imports ``jax`` or ``hyptokenizer_tpu``.
 Its tests hold each module to its JAX counterpart.
 
-Ported so far: corpus-only, all-features and distance-only training, the
+Ported: corpus-only, all-features and distance-only training, the
 enhanced configurations, encoding, the geometry, the kernels' selfcheck,
 the bench, the device CLI, the training CLIs with embedding pretraining,
-hierarchy supervision, checkpoint and resume, and the downstream models
-with the evaluation CLIs:
+hierarchy supervision, checkpoint and resume, the downstream models with
+the evaluation CLIs, and sharded training on ``torch.distributed``:
 
 - ``ops.lorentz``, ``ops.poincare`` — hyperbolic geometry
 - ``ops.cuda.enhanced_loop``— kernels K1 and K2, the scored merge segment
@@ -32,6 +32,10 @@ with the evaluation CLIs:
                               classification (``models.nlp``), the
                               two-tower model (``models.multimodal``) and
                               retrieval training (``models.retrieval``)
+- ``parallel``              — sharded training: ranks and collectives
+                              (``mesh``), the process group
+                              (``multihost``), the v2/v3/v3f syncs and the
+                              replicated segments (``sharded``)
 - ``bench``                 — ``bench.py``'s workloads at full depth
 - ``cli``                   — the training and evaluation CLIs,
                               ``test_torch`` (device smoke test and kernel

@@ -23,4 +23,9 @@ add ``--device`` (default: the card; ``--device cpu`` runs on the CPU).
   without a network (host only)
 - ``test_torch``               — device smoke test and, with
   ``--kernel-check``, the kernels' selfcheck (the port of ``test_tpu``)
+- ``bench_scaling``            — merge throughput of the sharded loop at
+  the world's size (``--multihost`` for several processes)
+
+``--mesh`` and ``--multihost`` train through ``parallel/`` (one process
+per rank, ``torch.distributed``).
 """

@@ -4,8 +4,9 @@ Port of ``hyptokenizer_tpu/cli/_common.py`` with the same flags, plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions of the kernels). XLA's persistent compile cache
 (``enable_compile_cache``) has no counterpart: the kernels' build cache is
-``hyptokenizer_tpu_torch/_build/``. ``--mesh`` and ``--multihost`` stay as
-flags and exit with a message until ``parallel/`` is ported.
+``hyptokenizer_tpu_torch/_build/``. ``--mesh`` and ``--multihost`` train
+across ranks (``parallel/``, on ``torch.distributed``: one process per
+rank), with ``--dist-backend`` to choose gloo on the card.
 """
 
 from __future__ import annotations
@@ -128,40 +129,52 @@ def persist_train_config(args, output_dir: str) -> None:
 
 def add_multihost_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--multihost", action="store_true",
-                   help="sharded training over several hosts (not ported "
-                        "yet: exits with a message)")
+                   help="initialise torch.distributed (one process per "
+                        "rank) and train sharded over all ranks")
     p.add_argument("--coordinator-address", type=str, default=None,
-                   help="host:port of process 0")
+                   help="host:port of process 0 (else torchrun's "
+                        "environment, else one process)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--mesh", action="store_true",
-                   help="sharded training over all local devices (not "
-                        "ported yet: exits with a message)")
+                   help="train through the sharded path even without "
+                        "--multihost (a world of one process unless one "
+                        "was initialised)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (default: nccl on the "
+                        "card, gloo on the CPU; gloo lets several ranks "
+                        "share one card)")
 
 
-def maybe_init_multihost(args):
-    """The mesh to train on: None (one device). ``--mesh`` and
-    ``--multihost`` raise ``SystemExit``: the sharded loop
-    (``hyptokenizer_tpu/parallel/``) is not ported yet, and a sharded run
-    must not quietly run on one device."""
-    for flag in ("multihost", "mesh"):
-        if getattr(args, flag, False):
-            raise SystemExit(
-                f"--{flag}: the sharded training of parallel/ is not ported "
-                "to hyptokenizer_tpu_torch yet (ROADMAP.md); run without it "
-                "on one device")
+def maybe_init_multihost(args, device=None):
+    """Initialise torch.distributed per the flags; return the mesh to train
+    on on ``device`` (None = the unsharded path)."""
+    backend = getattr(args, "dist_backend", None)
+    if getattr(args, "multihost", False):
+        from hyptokenizer_tpu_torch.parallel.multihost import (
+            global_mesh, initialize_multihost)
+        initialize_multihost(coordinator_address=args.coordinator_address,
+                             num_processes=args.num_processes,
+                             process_id=args.process_id, backend=backend,
+                             device=device)
+        return global_mesh(device, backend=backend)
+    if getattr(args, "mesh", False):
+        from hyptokenizer_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh(device=device, backend=backend)
     return None
 
 
-def training_observability(args):
-    """(metrics_writer, profile_ctx, per-chunk callback) from the aux flags."""
+def training_observability(args, writes: bool = True):
+    """(metrics_writer, profile_ctx, per-chunk callback) from the aux flags;
+    ``writes=False`` (every rank but 0 of a sharded run) writes no file."""
     import contextlib
     from hyptokenizer_tpu_torch.utils.metrics import (
         MetricsWriter, enable_nan_checks, profile_trace)
     if getattr(args, "debug_nans", False):
         enable_nan_checks(True)
-    writer = MetricsWriter(args.metrics_path) if args.metrics_path else None
-    ctx = profile_trace(args.profile) if args.profile else (
+    writer = (MetricsWriter(args.metrics_path)
+              if args.metrics_path and writes else None)
+    ctx = profile_trace(args.profile) if args.profile and writes else (
         contextlib.nullcontext())
     cb = writer.log if writer else (lambda stat: None)
     return writer, ctx, cb

@@ -109,7 +109,6 @@ def main(argv=None):
 
     setup_logging()
     set_seeds(args.seed)
-    maybe_init_multihost(args)
     if args.hierarchy_supervision in ("wordnet", "both") \
             and not args.graph_path:
         raise SystemExit("--hierarchy-supervision wordnet needs "
@@ -119,9 +118,13 @@ def main(argv=None):
     from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
     from hyptokenizer_tpu_torch.utils import data
 
-    dev = _device.resolve(args.device)
+    mesh = maybe_init_multihost(args, _device.resolve(args.device))
+    dev = _device.resolve(args.device) if mesh is None else mesh.device
+    # Only rank 0 of a sharded run writes files (every rank holds the same
+    # state).
+    writes = mesh is None or mesh.rank == 0
     # Before the pretraining, so that --debug-nans covers its autograd.
-    writer, profile_ctx, metrics_cb = training_observability(args)
+    writer, profile_ctx, metrics_cb = training_observability(args, writes)
     vocab = load_or_build_vocab(args.vocab_path, args.corpus_path)
     emb = data.initialize_embeddings(len(vocab), args.embedding_dim,
                                      args.curvature, args.init_sigma,
@@ -159,11 +162,12 @@ def main(argv=None):
         freq_table_size=args.freq_table_size,
         queue_size=args.queue_size,
         seed=args.seed,
+        mesh=mesh,
     )
     if args.resume and args.checkpoint_dir:
         from hyptokenizer_tpu_torch.utils.checkpoint import restore_checkpoint
         restore_checkpoint(args.checkpoint_dir, tok)
-    if args.checkpoint_dir and args.checkpoint_every:
+    if args.checkpoint_dir and args.checkpoint_every and writes:
         from hyptokenizer_tpu_torch.utils.checkpoint import save_checkpoint
         counter = {"n": 0}
 
@@ -188,6 +192,8 @@ def main(argv=None):
                 "merges": len(tok.merge_history)})
     if writer and tok.training_summary:
         writer.log(tok.training_summary)
+    if not writes:
+        return tok  # rank 0 alone supervises and writes the artifacts
     if args.hierarchy_supervision != "none":
         from hyptokenizer_tpu_torch.cli.train_graph_embeddings import \
             supervise_embeddings

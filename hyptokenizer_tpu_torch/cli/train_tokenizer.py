@@ -40,14 +40,15 @@ def main(argv=None):
 
     setup_logging()
     set_seeds(args.seed)
-    maybe_init_multihost(args)
 
     from hyptokenizer_tpu_torch import _device
     from hyptokenizer_tpu_torch.tokenizer import HyperbolicTokenizer
     from hyptokenizer_tpu_torch.utils import data
 
-    dev = _device.resolve(args.device)
-    writer, profile_ctx, metrics_cb = training_observability(args)
+    mesh = maybe_init_multihost(args, _device.resolve(args.device))
+    dev = _device.resolve(args.device) if mesh is None else mesh.device
+    writes = mesh is None or mesh.rank == 0   # rank 0 alone writes files
+    writer, profile_ctx, metrics_cb = training_observability(args, writes)
     vocab = load_or_build_vocab(args.vocab_path, args.corpus_path)
     emb = data.initialize_embeddings(len(vocab), args.embedding_dim,
                                      args.curvature, args.init_sigma,
@@ -59,6 +60,7 @@ def main(argv=None):
         max_vocab_size=args.max_vocab_size,
         adaptive_threshold=args.adaptive_threshold,
         device=dev,
+        mesh=mesh,
     )
     if args.resume and args.checkpoint_dir:
         from hyptokenizer_tpu_torch.utils.checkpoint import restore_checkpoint
@@ -76,10 +78,12 @@ def main(argv=None):
             done += chunk
             chunk_i += 1
             if args.checkpoint_dir and args.checkpoint_every and \
-                    chunk_i % args.checkpoint_every == 0:
+                    writes and chunk_i % args.checkpoint_every == 0:
                 from hyptokenizer_tpu_torch.utils.checkpoint import \
                     save_checkpoint
                 save_checkpoint(args.checkpoint_dir, tok)
+    if not writes:
+        return tok
     tok.save(args.output_dir)
     persist_train_config(args, args.output_dir)
     with open(os.path.join(args.output_dir, "training_stats.json"), "w") as f:

@@ -292,7 +292,8 @@ def _refold(pre, post, pairs, max_token_len: int):
 
 
 def _lockstep_steps(tok, n_segments: int, out: Dict, name: str,
-                    seed: int = 0, row_atol: float = 1e-5) -> None:
+                    seed: int = 0, row_atol: float = 1e-5,
+                    sync=None) -> None:
     """Hold the segment kernel of ``tok``'s configuration to its plain
     version step by step over ``n_segments`` segments (each up to the next
     curvature event), on ``tok``'s device, from one sync of ``tok``'s
@@ -305,17 +306,20 @@ def _lockstep_steps(tok, n_segments: int, out: Dict, name: str,
     The run continues from the plain state. Writes ``out[name]`` ("pass" or
     "FAIL ..."), ``_merges``, ``_steps``, ``_reorders``, ``_dist_ties``,
     ``_partner_ties``, ``_row_err``, ``_row_err_over_tol`` and
-    ``_gram_gap_over_bound``."""
+    ``_gram_gap_over_bound``. ``sync`` replaces
+    ``enhanced_state.sync_corpus`` (same arguments), e.g. to lay the pair
+    table out as the v3 sharded sync does."""
     import torch
 
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K
     from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 
     cfg = tok.enh_config
+    sync = sync or E.sync_corpus
     st = E.clone_state(tok.enh_state)
     dev = st.base.emb.device
     sampler = E.TorchSampler(seed, dev)
-    st = E.sync_corpus(st, cfg, sampler)
+    st = sync(st, cfg, sampler)
     n0 = int(st.base.num_merges)
     freq = cfg.curvature_freq if cfg.use_adaptive_curvature else 0
     stats: Dict = {}
@@ -382,7 +386,7 @@ def _lockstep_steps(tok, n_segments: int, out: Dict, name: str,
             st = sp   # oracle resync: noise never cascades across steps
             sc = b
         if sc["needs_resync"]:
-            st = E.sync_corpus(st, cfg, sampler)
+            st = sync(st, cfg, sampler)
     out[name] = "pass" if ok else f"FAIL {stats.get('first_bad')}"
     out[f"{name}_merges"] = int(st.base.num_merges) - n0
     out[f"{name}_steps"] = steps

@@ -98,20 +98,24 @@ def build_all(names=None) -> dict:
         if os.path.exists(out):
             STATS["hits"] += 1
             continue
+        # A temporary named by the process: ranks of one job that build
+        # the same source at once each finish their own file, and the
+        # rename is atomic.
+        tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", out + ".tmp", src]
+               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", tmp, src]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       out)
+                       out, tmp)
     took = {}
     failed = []
-    for name, (proc, out) in procs.items():
+    for name, (proc, out, tmp) in procs.items():
         log, _ = proc.communicate()
         took[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
-        os.replace(out + ".tmp", out)
+        os.replace(tmp, out)
         BUILD_LOG[name] = {"seconds": took[name], "ptxas": log}
     if procs:
         STATS["nvcc_s"] += time.perf_counter() - t0

@@ -14,8 +14,10 @@
 //   per step: [hierarchical phase from the merge count] -> [K2: the dense
 //   candidate: block-wide argmin of best_dist over the active rows (lowest
 //   index on ties), its full score (pair count by binary search of the
-//   lexicographic pair table, coherence of its midpoint against the sync's
-//   samples, compression, morph/word membership of the composed hash)] ->
+//   lexicographic pair table, or of the pair's owner slice of a
+//   hash-partitioned one (n_buckets > 1), coherence of its midpoint
+//   against the sync's samples, compression, morph/word membership of the
+//   composed hash)] ->
 //   rank the valid entries of the phase's score-sorted queue (score > -inf,
 //   dist < thr, [K2: not the dense pair]) by an exclusive block scan ->
 //   either flag a resync (truncated queue that cannot fill a batch, or
@@ -173,13 +175,15 @@ struct Params {
   // K2 only.
   float* best_dist;      // (max_v,)
   int* best_j;           // (max_v,)
-  const int* pair_keys;  // (table_size, 2) lexicographically sorted
+  const int* pair_keys;  // (table_size, 2) lexicographically sorted, or
+                         // n_buckets owner slices, each sorted
   const int* pair_counts;  // (table_size,)
   const int* morph;      // (morph_len,) sorted, padded
   const int* word;       // (word_len,) sorted, padded
   const int* samples;    // (n_samples,) coherence sample ids
   int table_size, morph_len, word_len, n_samples;
   int needs_corpus, use_freq, use_comp, max_token_len;
+  int n_buckets;         // > 1: the table is hash-partitioned (pair_count)
   float w_alpha, w_beta, w_gamma, w_comp, w_morph;
   // K2's cooperative grid.
   float* part_v;         // (grid,) each block's minimum of best_dist
@@ -377,9 +381,49 @@ __device__ void step_scalars(const Params& p, int* s_i, float* s_f,
   if (s_i[S_VOCAB] >= p.max_v) s_i[S_STOPPED] = 1;
 }
 
+// Owner slice of the pair (hi, lo) in a table of n > 1 hash partitions
+// (scoring.pair_dest on scoring.pack_lex's key): the packed key, then the
+// Fibonacci mix in unsigned 32-bit arithmetic, which wraps as the JAX
+// package's int32 product does without a signed overflow; the shift is
+// the int32 arithmetic shift.
+__device__ int pair_owner(int hi, int lo, int n) {
+  const uint32_t u = (uint32_t)hi * 65536u + (uint32_t)lo;
+  const int32_t k = (int32_t)(u ^ 0x80000000u);
+  const uint32_t h = ((uint32_t)k ^ (uint32_t)(k >> 15)) * 2654435769u;
+  return (int)((h & 0x7FFFFFFFu) % (uint32_t)n);
+}
+
+// Count of (hi, lo) in the hash-partitioned table
+// (scoring.lookup_pair_counts_hashed): a binary search of the owner's
+// slice of table_size / n_buckets rows, each slice sorted by packed key,
+// which is the lexicographic order of (hi, lo); 0 when absent.
+__device__ int pair_count_hashed(const Params& p, int hi, int lo) {
+  const int td = p.table_size / p.n_buckets;
+  const int off = pair_owner(hi, lo, p.n_buckets) * td;
+  const int* keys = p.pair_keys + 2 * off;
+  int a = 0;
+  int b = td;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    const int mh = keys[2 * mid];
+    const int ml = keys[2 * mid + 1];
+    if (mh < hi || (mh == hi && ml < lo)) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  const int pos = min(a, td - 1);
+  return (keys[2 * pos] == hi && keys[2 * pos + 1] == lo)
+             ? p.pair_counts[off + pos]
+             : 0;
+}
+
 // Count of the pair (hi, lo) in the lexicographically sorted pair table, 0
-// when absent (scoring.lookup_pair_counts).
+// when absent (scoring.lookup_pair_counts); in the owner's slice of a
+// hash-partitioned table when n_buckets > 1.
 __device__ int pair_count(const Params& p, int hi, int lo) {
+  if (p.n_buckets > 1) return pair_count_hashed(p, hi, lo);
   int a = 0;
   int b = p.table_size;
   while (a < b) {
@@ -1552,7 +1596,9 @@ extern "C" int enhanced_loop_dense_grid(int nb) {
 
 // K2: the arguments of enhanced_loop_launch, then the dense channel's
 // buffers (best_dist, best_j, pair table, morph/word tables, coherence
-// samples), their sizes, its switches and the score weights, then the
+// samples), their sizes, its switches, the pair table's layout (n_buckets
+// > 1: that many hash partitions, the v3 sharded sync's; else one
+// lexicographically sorted table) and the score weights, then the
 // cooperative grid's size (enhanced_loop_dense_grid) and scratch: the
 // partials (grid floats, grid ints), block 0's event (E_COUNT ints,
 // zeroed) and the count of finished events (1, zeroed).
@@ -1566,12 +1612,13 @@ extern "C" int enhanced_loop_dense_launch(
     int empty_stop, void* best_dist, void* best_j, void* pair_keys,
     void* pair_counts, void* morph, void* word, void* samples, int table_size,
     int morph_len, int word_len, int n_samples, int needs_corpus,
-    int use_freq, int use_comp, int max_token_len,
+    int use_freq, int use_comp, int max_token_len, int n_buckets,
     float w_alpha, float w_beta, float w_gamma, float w_comp, float w_morph,
     int grid, void* part_v, void* part_i, void* event, void* done,
     void* stream) {
   if (nb < 1 || nb > kMaxBatch || table_size < 1 || morph_len < 1 ||
-      word_len < 1 || grid < 1) {
+      word_len < 1 || grid < 1 ||
+      (n_buckets > 1 && table_size % n_buckets != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p = base_params(
@@ -1594,6 +1641,7 @@ extern "C" int enhanced_loop_dense_launch(
   p.use_freq = use_freq;
   p.use_comp = use_comp;
   p.max_token_len = max_token_len;
+  p.n_buckets = n_buckets;
   p.w_alpha = w_alpha;
   p.w_beta = w_beta;
   p.w_gamma = w_gamma;

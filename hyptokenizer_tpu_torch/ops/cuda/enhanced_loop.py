@@ -16,7 +16,9 @@ launches or raises, never falls back. ``launches`` counts K1's launches,
 ``dense_launches`` K2's. K1 is one thread block that keeps the phase queues
 in shared memory for the launch (:func:`smem_plan`); K2 is a cooperative
 grid (:func:`dense_grid_size`) whose block 0 runs the steps and whose
-blocks fold their own rows.
+blocks fold their own rows. K2 reads the pair table in the layout
+``config.pair_table_hashed`` names: one lexicographically sorted table, or
+the v3 sharded sync's hash partitions (``parallel/sharded.py``).
 
 :func:`run_chunk` is the segment relaunch loop: one corpus sync, then
 segments that halt at every adaptive-curvature event, with the curvature
@@ -98,7 +100,7 @@ def _launcher(dense: bool):
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         args = [ptr] * 14 + [i] * 9 + [f] * 3 + [i, i, f, i, f, i]
         if dense:
-            args += [ptr] * 7 + [i] * 8 + [f] * 5 + [i] + [ptr] * 4
+            args += [ptr] * 7 + [i] * 9 + [f] * 5 + [i] + [ptr] * 4
         else:
             args += [i, i]                   # resident phase queues, ring
         fn.argtypes = args + [ptr]
@@ -214,7 +216,7 @@ def run_segment_cuda(st, config, m_budget: int, s_budget: int,
             st.morph_table.shape[0], st.word_table.shape[0],
             st.coh_samples.shape[0], int(config.needs_corpus),
             int(config.use_frequency), int(config.use_compression),
-            b.max_token_len,
+            b.max_token_len, config.pair_table_hashed,
             *config.weights()]
         g = dense_grid_size(dev, config)
         part_v = torch.empty((g,), dtype=torch.float32, device=dev)
@@ -264,10 +266,13 @@ def run_segment(st, config, m_budget: int, s_budget: int, curv_stop: int,
 
 
 def run_chunk(st, config, n_steps: int, sampler,
-              segment_steps: int = SEGMENT_STEPS, plain: bool = False):
+              segment_steps: int = SEGMENT_STEPS, plain: bool = False,
+              sync=None):
     """One sync, then segments until ``n_steps`` merges, a resync, a stop or
-    the step budget. ``plain`` runs the plain version on any device."""
-    st = E.sync_corpus(st, config, sampler)
+    the step budget. ``plain`` runs the plain version on any device;
+    ``sync`` replaces ``enhanced_state.sync_corpus`` (the sharded syncs of
+    ``parallel/sharded.py``, same arguments)."""
+    st = (sync or E.sync_corpus)(st, config, sampler)
     sc = E.state_scalars(st)
     m_budget = sc["num_merges"] + n_steps
     s_budget = sc["step"] + n_steps + 1024

@@ -9,7 +9,8 @@ byte, so artifacts move between the two packages in both directions.
 
 ``optimize_merges`` is the distance-only training loop: the startup
 threshold controller once per tokenizer, then chunks of ``state.run_merges``
-(kernel K4 on the card). A loaded tokenizer re-scans its dense candidates
+(kernel K4 on the card), or of ``parallel.sharded.run_merges_sharded`` on
+every rank of a ``mesh``. A loaded tokenizer re-scans its dense candidates
 (``search.full_pass_best`` with the loaded history and the length gate), so
 that training goes on after ``load``. The distance statistics draw their
 pairs from ``self.stats_sampler`` (``state.StatsSampler``, apart from any
@@ -56,7 +57,18 @@ class HyperbolicTokenizer:
         search_block: int = 512,
         normalizer=None,
         merge_policy: str = "fixpoint",
+        mesh=None,
     ):
+        # A mesh (parallel.mesh.make_mesh) runs each chunk through
+        # parallel/sharded.py on every rank, on the rank's device.
+        self.mesh = mesh
+        if mesh is not None:
+            from hyptokenizer_tpu_torch.parallel.mesh import \
+                pad_vocab_for_mesh
+            max_vocab_size = pad_vocab_for_mesh(int(max_vocab_size),
+                                                mesh.size)
+            if device is None:
+                device = mesh.device
         if len(vocab) > max_vocab_size:
             raise ValueError("initial vocab larger than max_vocab_size")
         self.device = _device.resolve(device)
@@ -183,7 +195,14 @@ class HyperbolicTokenizer:
         while done < steps:
             chunk = min(log_every, steps - done)
             t0 = time.perf_counter()
-            self.state = state_lib.run_merges(self.state, self.config, chunk)
+            if self.mesh is not None:
+                from hyptokenizer_tpu_torch.parallel.sharded import \
+                    run_merges_sharded
+                self.state = run_merges_sharded(self.state, self.config,
+                                                chunk, self.mesh)
+            else:
+                self.state = state_lib.run_merges(self.state, self.config,
+                                                  chunk)
             if metrics.nan_checks_enabled():
                 metrics.check_finite(self.state, f"step {done + chunk}")
             self._sync_merges_from_device()
@@ -231,8 +250,17 @@ class HyperbolicTokenizer:
         return self._get_encoder().decode(ids)
 
     # ----------------------------------------------------------------- persist
+    @property
+    def writes_files(self) -> bool:
+        """False on every rank but 0 of a sharded run: the ranks hold the
+        same state, and rank 0 alone writes it."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def save(self, path: str) -> None:
-        """Write the reference-schema artifacts."""
+        """Write the reference-schema artifacts (on rank 0 alone of a
+        sharded run)."""
+        if not self.writes_files:
+            return
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, "vocab.json"), "w") as f:
             json.dump(self.vocab, f)

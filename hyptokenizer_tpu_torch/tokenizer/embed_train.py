@@ -150,9 +150,11 @@ def _loss(emb, u_idx, v_idx, neg_idx, c):
     return torch.mean(_ranking_nll(emb, u_idx, v_idx, neg_idx, c))
 
 
-def _rsgd_loop(emb0, steps, lr, c, burn_in, draw, loss_fn):
+def _rsgd_loop(emb0, steps, lr, c, burn_in, draw, loss_fn, reduce=None):
     """The trainers' shared loop: ``draw(k)`` makes step k's indices,
-    ``loss_fn(e, drawn)`` its loss; RSGD on the whole table."""
+    ``loss_fn(e, drawn)`` its loss; RSGD on the whole table. ``reduce``,
+    when given, maps a rank's (loss, gradient) to the sums over the ranks
+    (``parallel/sharded.run_embed_train_sharded``)."""
     emb = emb0.detach().to(torch.float32)
     burn_in = burn_in or max(1, steps // 10)
     lr_t = emb.new_tensor(lr)
@@ -164,6 +166,8 @@ def _rsgd_loop(emb0, steps, lr, c, burn_in, draw, loss_fn):
         with torch.enable_grad():
             loss = loss_fn(e, drawn)
             g, = torch.autograd.grad(loss, e)
+        if reduce is not None:
+            loss, g = reduce(loss.detach(), g)
         emb = L.rsgd_step(emb, g, lr_burn if k < burn_in else lr_t, c)
         losses.append(loss.detach())
     out = torch.stack(losses) if losses else emb.new_zeros((0,))
@@ -173,7 +177,7 @@ def _rsgd_loop(emb0, steps, lr, c, burn_in, draw, loss_fn):
 def train_embeddings(emb0: torch.Tensor, corpus: torch.Tensor, vocab_size,
                      sampler, steps: int = 2000, batch: int = 1024,
                      negatives: int = 10, lr: float = 0.3, c: float = 1.0,
-                     burn_in: int = 0):
+                     burn_in: int = 0, part=None):
     """RSGD-train embeddings on adjacent co-occurrence in ``corpus``.
 
     Args:
@@ -184,6 +188,11 @@ def train_embeddings(emb0: torch.Tensor, corpus: torch.Tensor, vocab_size,
       sampler: the draws (module docstring): per step, positions
         ``randint((batch,), N-1)`` then negatives
         ``randint((batch, negatives), max(vocab_size, 1))``.
+      part: ``(rank, size, reduce)`` to train as one of ``size`` ranks:
+        every rank draws the whole batch, takes its ``rank``-th contiguous
+        slice of it (the weights' total stays the batch's), and ``reduce``
+        sums the loss and the table gradient over the ranks
+        (``parallel/sharded.run_embed_train_sharded``).
     Returns: (trained embeddings on the manifold, per-step loss trace).
 
     A position whose pair touches PAD or SEP becomes a self-pair on token 0
@@ -205,14 +214,29 @@ def train_embeddings(emb0: torch.Tensor, corpus: torch.Tensor, vocab_size,
         u_idx = torch.where(valid, u_idx, 0)
         v_idx = torch.where(valid, v_idx, 0)
         neg = sampler.randint((batch, negatives), vhi).to(dev).long()
-        return u_idx, v_idx, neg, valid.to(torch.float32)
+        w = valid.to(torch.float32)
+        total = torch.sum(w)
+        if part is not None:
+            lo, hi = _slice_bounds(batch, part[0], part[1])
+            u_idx, v_idx, neg, w = (u_idx[lo:hi], v_idx[lo:hi], neg[lo:hi],
+                                    w[lo:hi])
+        return u_idx, v_idx, neg, w, total
 
     def loss_fn(e, drawn):
-        u_idx, v_idx, neg, w = drawn
+        u_idx, v_idx, neg, w, total = drawn
         nll = _ranking_nll(e, u_idx, v_idx, neg, c)
-        return torch.sum(nll * w) / torch.clamp_min(torch.sum(w), 1.0)
+        return torch.sum(nll * w) / torch.clamp_min(total, 1.0)
 
-    return _rsgd_loop(emb0, steps, lr, c, burn_in, draw, loss_fn)
+    return _rsgd_loop(emb0, steps, lr, c, burn_in, draw, loss_fn,
+                      None if part is None else part[2])
+
+
+def _slice_bounds(n: int, rank: int, size: int):
+    """The ``rank``-th of ``size`` contiguous slices of ``range(n)``, the
+    first ``n % size`` one longer."""
+    q, r = divmod(n, size)
+    lo = rank * q + min(rank, r)
+    return lo, lo + q + (rank < r)
 
 
 def train_embeddings_pairs(emb0: torch.Tensor, pairs, weights, neg_pool,

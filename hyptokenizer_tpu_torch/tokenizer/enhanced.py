@@ -8,10 +8,13 @@ configuration (``bench.py`` ``bench_allfeatures``); its four configurations
 ``AdaptiveCurvatureTokenizer`` and ``CompressionAwareTokenizer``; and the
 ``EnhancedFastHyperbolicTokenizer`` alias. The constructor keeps the JAX
 package's signature, except that ``device`` is honoured (default
-``"cuda"``), ``seed`` seeds the :class:`TorchSampler` the loop draws from,
-and ``mesh`` waits for the port of ``parallel/``. ``corpus_shrink`` (off by
-default, as in the JAX package) halves the corpus buffer while its live
-prefix fits, on one device.
+``"cuda"``, or the mesh's device) and ``seed`` seeds the
+:class:`TorchSampler` the loop draws from. With a ``mesh``
+(``parallel.mesh.make_mesh``) each chunk runs through
+``parallel.sharded.run_enhanced_sharded`` on every rank, every rank
+drawing the same numbers; ``corpus_shards`` aligns the corpus for the
+sharded syncs. ``corpus_shrink`` (off by default, as in the JAX package)
+halves the corpus buffer while its live prefix fits, on one rank.
 """
 
 from __future__ import annotations
@@ -110,6 +113,7 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
         merge_policy: str = "fixpoint",
         corpus_shards: int = 1,
         corpus_shrink: bool = False,
+        mesh=None,
     ):
         del cache_size, rebuild_frequency, hnsw_m, hnsw_ef_construction
         del hnsw_ef_search, distance_weight, sample_size, pool_k
@@ -128,7 +132,7 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
             max_vocab_size=max_vocab_size,
             use_approximate_search=use_approximate_search,
             search_block=search_block, normalizer=normalizer,
-            merge_policy=merge_policy)
+            merge_policy=merge_policy, mesh=mesh)
         self.language = language
         self.corpus_shrink = corpus_shrink
         # The length cap, mirrored so that load's candidate re-scan applies
@@ -244,6 +248,8 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
         at each shard's prefix, so it is never sliced."""
         if not self.corpus_shrink or self.corpus_shards > 1:
             return
+        if self.mesh is not None and self.mesh.size > 1:
+            return  # each rank syncs its shard of the whole buffer
         corpus = self.enh_state.corpus
         buf = corpus.shape[0]
         if buf <= self.MIN_CORPUS_BUFFER:
@@ -316,8 +322,15 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
             syncs = 0
             while run < chunk:
                 n = min(sub, chunk - run)
-                self.enh_state, rounds = E.run_enhanced(
-                    self.enh_state, self.enh_config, n, self.sampler)
+                if self.mesh is not None:
+                    from hyptokenizer_tpu_torch.parallel.sharded import \
+                        run_enhanced_sharded
+                    self.enh_state, rounds = run_enhanced_sharded(
+                        self.enh_state, self.enh_config, n, self.mesh,
+                        self.sampler)
+                else:
+                    self.enh_state, rounds = E.run_enhanced(
+                        self.enh_state, self.enh_config, n, self.sampler)
                 syncs += rounds
                 run += n
             if metrics.nan_checks_enabled():
@@ -404,6 +417,8 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
         return out
 
     def save(self, path: str) -> None:
+        if not self.writes_files:
+            return
         super().save(path)
         cfg = self.enh_config
         enhanced_config = {

@@ -77,6 +77,13 @@ class EnhancedConfig:
     distortion_samples: int = 500
 
     frozen_freqs: bool = False
+    # The pair table's layout as the loop reads it: 0/1 one lex-sorted
+    # table (build_pair_table); D > 1 the v3 sharded sync's D owner slices
+    # of T/D rows, each sorted (scoring.lookup_pair_counts_hashed). Only
+    # the dense channel's per-step count lookup reads it; the sharded
+    # chunk (parallel/sharded.py) sets it on the configuration it hands the
+    # loop after a v3 sync.
+    pair_table_hashed: int = 0
     freq_table_size: int = 1 << 17
     queue_size: int = 4096
 
@@ -221,13 +228,31 @@ def assemble_enhanced_buffers(t_feat, morph_tab, word_tab, morph_size: int,
 
 # ----------------------------------------------------------------- features
 
+COHERENCE_BLOCK = 4096  # rows per gram of the coherence (below)
+
+
 def _coherence(emb, rows, cols, lengths, c, threshold, samples_idx):
-    """Sigmoid semantic coherence of the simulated merges (rows, cols)."""
+    """Sigmoid semantic coherence of the simulated merges (rows, cols).
+
+    Past one block, the midpoint-to-sample grams are taken
+    ``COHERENCE_BLOCK`` rows at a time, the last block padded: every gram
+    then has the same shape whatever the number of candidates, so a
+    candidate's score has the same bits in the single-device sync (T
+    rows) and in a sharded one (each rank's owned keys), and the two keep
+    the same order of near-equal scores."""
     w_j = (lengths[cols].float()
            / torch.clamp_min(lengths[rows] + lengths[cols], 1).float())
     mid = L.geodesic_point(emb[rows], emb[cols], w_j)
     s = samples_idx.long()
-    dmat = L.pairwise_dist(mid, emb[s], c, eps=GRAD_EPS)
+    n = mid.shape[0]
+    if n <= 1:
+        dmat = L.pairwise_dist(mid, emb[s], c, eps=GRAD_EPS)
+    else:
+        nb = -(-n // COHERENCE_BLOCK)
+        pad = torch.cat([mid, mid[:1].expand(nb * COHERENCE_BLOCK - n, -1)])
+        samp = emb[s]
+        dmat = torch.cat([L.pairwise_dist(blk, samp, c, eps=GRAD_EPS)
+                          for blk in pad.split(COHERENCE_BLOCK)])[:n]
     not_self = (s[None, :] != rows[:, None]) & (s[None, :] != cols[:, None])
     cnt = torch.clamp_min(not_self.sum(dim=1), 1)
     avg = torch.where(not_self, dmat, torch.zeros_like(dmat)).sum(dim=1) / cnt
@@ -236,15 +261,25 @@ def _coherence(emb, rows, cols, lengths, c, threshold, samples_idx):
 
 def _morph_scores(st: EnhancedState, rows, cols):
     """(n, 3) morphology score per phase for candidate pairs."""
-    len_i = st.base.lengths[rows]
-    len_j = st.base.lengths[cols]
+    return _morph_scores_raw(
+        st.base.lengths, st.token_hash, st.byte_lengths, st.has_vowel,
+        st.hash_powers, st.morph_table, st.morph_size, st.word_table,
+        st.word_size, rows, cols)
+
+
+def _morph_scores_raw(lengths, token_hash, byte_lengths, has_vowel,
+                      hash_powers, morph_table, morph_size, word_table,
+                      word_size, rows, cols):
+    """:func:`_morph_scores` on explicit arrays."""
+    len_i = lengths[rows]
+    len_j = lengths[cols]
     p1 = torch.where((len_i <= 2) & (len_j <= 2), 0.8, 0.2)
-    merged = scoring.compose_hash(st.token_hash[rows], st.token_hash[cols],
-                                  st.byte_lengths[cols], st.hash_powers)
+    merged = scoring.compose_hash(token_hash[rows], token_hash[cols],
+                                  byte_lengths[cols], hash_powers)
     mkey = scoring.pack_hash(merged[..., 0], merged[..., 1])
-    is_morph = scoring.in_sorted_set(mkey, st.morph_table, st.morph_size)
-    merged_vowel = st.has_vowel[rows] | st.has_vowel[cols]
-    is_word = (scoring.in_sorted_set(mkey, st.word_table, st.word_size)
+    is_morph = scoring.in_sorted_set(mkey, morph_table, morph_size)
+    merged_vowel = has_vowel[rows] | has_vowel[cols]
+    is_word = (scoring.in_sorted_set(mkey, word_table, word_size)
                | ((len_i + len_j >= 3) & merged_vowel))
     p2 = torch.where(is_morph, 0.9, 0.3)
     p3 = torch.where(is_word, 1.0, 0.4)
@@ -258,6 +293,21 @@ def _full_scores(st: EnhancedState, config: EnhancedConfig, rows, cols,
     Coherence uses the sync's sample set ``st.coh_samples``; compression the
     sync-time token total ``st.corpus_tokens``."""
     base = st.base
+    return _full_scores_raw(
+        config, base.emb, base.lengths, base.threshold, base.curvature,
+        st.coh_samples, st.max_pair_count, st.corpus_tokens, st.token_hash,
+        st.byte_lengths, st.has_vowel, st.hash_powers, st.morph_table,
+        st.morph_size, st.word_table, st.word_size, rows, cols, dists, freqs)
+
+
+def _full_scores_raw(config: EnhancedConfig, emb, lengths, threshold,
+                     curvature, coh_samples, max_pair_count, corpus_tokens,
+                     token_hash, byte_lengths, has_vowel, hash_powers,
+                     morph_table, morph_size, word_table, word_size,
+                     rows, cols, dists, freqs):
+    """:func:`_full_scores` on explicit arrays: the single-device sync and
+    the sharded syncs (``parallel/sharded.py``, on each rank's keys) score
+    with this one formula."""
     alpha, beta, gamma, comp_w, morph_w = config.weights()
     n = rows.shape[0]
     dev = dists.device
@@ -266,19 +316,21 @@ def _full_scores(st: EnhancedState, config: EnhancedConfig, rows, cols,
     semantic = torch.zeros((n,), device=dev)
     compression = torch.zeros((n,), device=dev)
     if config.use_frequency:
-        denom = torch.log1p(torch.clamp_min(st.max_pair_count, 1).float())
+        denom = torch.log1p(torch.clamp_min(max_pair_count, 1).float())
         frequency_score = (torch.log1p(freqs.float())
                            / torch.clamp_min(denom, 1e-9))
-        semantic = _coherence(base.emb, rows, cols, base.lengths,
-                              base.curvature, base.threshold, st.coh_samples)
+        semantic = _coherence(emb, rows, cols, lengths, curvature, threshold,
+                              coh_samples)
     if config.use_compression:
-        total = torch.clamp_min(st.corpus_tokens, 1).float()
+        total = torch.clamp_min(corpus_tokens, 1).float()
         ratio = total / torch.clamp_min(total - freqs.float(), 1.0)
         compression = torch.clamp(ratio - 1.0, 0.0, 1.0)
     score = (alpha * dist_score + beta * frequency_score + gamma * semantic
              + comp_w * compression)[:, None] * torch.ones((1, 3), device=dev)
     if config.use_hierarchical:
-        score = score + morph_w * _morph_scores(st, rows, cols)
+        score = score + morph_w * _morph_scores_raw(
+            lengths, token_hash, byte_lengths, has_vowel, hash_powers,
+            morph_table, morph_size, word_table, word_size, rows, cols)
     return score
 
 
@@ -379,8 +431,13 @@ def _dense_candidate(st: EnhancedState, config: EnhancedConfig, pidx: int):
     di = torch.argmin(base.best_dist)
     dd = base.best_dist[di]
     dj = base.best_j[di].long()
-    freq = scoring.lookup_pair_counts(di[None], dj[None], st.pair_keys,
-                                      st.pair_counts)
+    if config.pair_table_hashed > 1:
+        freq = scoring.lookup_pair_counts_hashed(
+            di[None], dj[None], st.pair_keys, st.pair_counts,
+            config.pair_table_hashed)
+    else:
+        freq = scoring.lookup_pair_counts(di[None], dj[None], st.pair_keys,
+                                          st.pair_counts)
     score = _full_scores(st, config, di[None], dj[None], dd[None],
                          freq)[0, pidx]
     valid = torch.isfinite(dd) & (dd < base.threshold)
@@ -545,13 +602,18 @@ def sync_corpus(st: EnhancedState, config: EnhancedConfig,
 
 
 def _sync_finish(st: EnhancedState, config: EnhancedConfig, sampler,
-                 corpus, keys, counts, n_unique, max_count) -> EnhancedState:
-    """Scores and candidate queues from a fresh pair table."""
+                 corpus, keys, counts, n_unique, max_count,
+                 corpus_tokens=None) -> EnhancedState:
+    """Scores and candidate queues from a fresh pair table.
+
+    ``corpus_tokens``: the live token total, when ``corpus`` is one rank's
+    shard of it (the v2 sharded sync); by default counted in ``corpus``."""
     base = st.base
     samples = sampler.coherence(config.coherence_samples,
                                 max(int(base.vocab_size), 1))
-    corpus_tokens = (st.corpus_tokens if config.frozen_freqs
-                     else scoring.corpus_token_count(corpus))
+    if corpus_tokens is None:
+        corpus_tokens = (st.corpus_tokens if config.frozen_freqs
+                         else scoring.corpus_token_count(corpus))
     st = dataclasses.replace(
         st, coh_samples=samples.to(torch.int32), corpus=corpus,
         corpus_synced=base.num_merges.clone(), corpus_tokens=corpus_tokens,
@@ -610,13 +672,15 @@ def _sorted_history(pairs: torch.Tensor):
 # ------------------------------------------------------------------ chunk
 
 def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
-                 sampler) -> tuple[EnhancedState, int]:
+                 sampler, sync=None) -> tuple[EnhancedState, int]:
     """One chunk: merge up to ``n_steps`` tokens, re-syncing the corpus
     statistics as often as the candidate queues demand.
 
     Returns the state and the number of syncs the chunk took. Each sync is
     followed by kernel segments on the card, or by the plain step loop for a
-    state on the CPU (``ops/cuda/enhanced_loop.run_chunk``).
+    state on the CPU (``ops/cuda/enhanced_loop.run_chunk``). ``sync``
+    replaces :func:`sync_corpus` (the sharded syncs,
+    ``parallel/sharded.py``).
     """
     if (config.use_dense_channel or not config.needs_corpus) and \
             bool(st.base.best_dist[0] == -INF):
@@ -630,7 +694,8 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
     before = int(st.base.num_merges)
     rounds = 0
     while True:
-        st = enhanced_loop.run_chunk(st, config, remaining, sampler)
+        st = enhanced_loop.run_chunk(st, config, remaining, sampler,
+                                     sync=sync)
         rounds += 1
         now = int(st.base.num_merges)
         remaining -= now - before

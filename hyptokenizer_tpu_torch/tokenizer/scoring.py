@@ -293,15 +293,24 @@ def _f32_sortable(x: torch.Tensor) -> torch.Tensor:
     return torch.where(b >= 0, b, (~b) ^ _I32_MIN)
 
 
-def top_k_desc(vals: torch.Tensor, k: int):
+def top_k_desc(vals: torch.Tensor, k: int, tiebreak=None):
     """Exact per-row top-k of a (P, T) float32 array: (values, indices),
     values descending, ties to the lowest index; rows shorter than ``k`` are
-    padded with -inf and index T-1."""
+    padded with -inf and index T-1.
+
+    ``tiebreak``: an optional (P, T) int32, unique per row among the real
+    entries: equal values then go to the smallest tiebreak (equal
+    tiebreaks to the lowest index). The sharded syncs pass the packed pair
+    key, which is the single-device table's position order, so that a
+    partitioned selection keeps the single-device order."""
     p, t = vals.shape
     kk = min(k, t)
     # ~s reverses the order of the sortable image; a stable ascending sort
-    # then keeps equal values in index order.
-    order = torch.sort(~_f32_sortable(vals), dim=1, stable=True).indices
+    # then keeps equal values in index (or tiebreak) order.
+    key = ~_f32_sortable(vals)
+    if tiebreak is not None:
+        key = (key.long() << 32) | (tiebreak.long() + 2**31)
+    order = torch.sort(key, dim=1, stable=True).indices
     idx = order[:, :kk]
     out = torch.gather(vals, 1, idx)
     if kk < k:
@@ -312,3 +321,155 @@ def top_k_desc(vals: torch.Tensor, k: int):
                                          dtype=idx.dtype,
                                          device=idx.device)], dim=1)
     return out, idx
+
+
+# ------------------------------------------------- hash-partitioned tables
+
+def pair_dest(pk: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Owner bucket of packed pair keys (a Fibonacci mix): the v3 sharded
+    sync's key partition and the hashed table lookup, which must agree.
+
+    The JAX package mixes in int32 and relies on its wraparound; here the
+    product is taken in int64 and masked to its low 32 bits, which is the
+    same bits without a signed overflow (``(h & 0x7FFFFFFF) % n``)."""
+    k = pk.long()
+    s = k >> 15                       # arithmetic, as the int32 shift
+    h = ((k ^ s) * 2654435769) & 0xFFFFFFFF
+    return ((h & 0x7FFFFFFF) % n_buckets).to(torch.int32)
+
+
+def lookup_pair_counts_hashed(q_hi: torch.Tensor, q_lo: torch.Tensor,
+                              table_keys: torch.Tensor,
+                              table_counts: torch.Tensor,
+                              n_buckets: int) -> torch.Tensor:
+    """Counts for (hi, lo) pairs in a hash-partitioned table (0 if absent).
+
+    The layout of the v3 sharded sync's table: ``n_buckets`` owner slices
+    of T/n_buckets rows each, each sorted by packed key with PKEY_SENT
+    padding. A query searches only its owner's slice (:func:`pair_dest`).
+    Requires ids <= PACK_MAX_ID - 1 (the v3 gate enforces it)."""
+    t = table_keys.shape[0]
+    td = t // n_buckets
+    pkt = pack_lex(table_keys[:, 0], table_keys[:, 1]).reshape(n_buckets,
+                                                                td)
+    q = pack_lex(q_hi.to(torch.int32), q_lo.to(torch.int32))
+    dest = pair_dest(q, n_buckets).long()
+    seg = pkt[dest]                                   # (n, td)
+    pos = torch.searchsorted(seg, q.reshape(-1, 1)).reshape(-1)
+    pos = torch.clamp_max(pos, td - 1)
+    at = dest * td + pos
+    hit = pkt.reshape(-1)[at] == q
+    return torch.where(hit, table_counts[at], torch.zeros_like(
+        table_counts[at]))
+
+
+def searchsorted_pairs(t_hi: torch.Tensor, t_lo: torch.Tensor,
+                       q_hi: torch.Tensor, q_lo: torch.Tensor
+                       ) -> torch.Tensor:
+    """Lexicographic ``searchsorted`` (side='left') of (hi, lo) queries in a
+    lex-sorted two-lane table, as int32 positions."""
+    return torch.searchsorted(_key64(t_hi, t_lo),
+                              _key64(q_hi.to(torch.int32),
+                                     q_lo.to(torch.int32))).to(torch.int32)
+
+
+def merge_pair_tables(keys: torch.Tensor, counts: torch.Tensor,
+                      n_uniques: torch.Tensor, table_size: int):
+    """Combine per-shard pair tables into one sorted table.
+
+    ``keys`` (S*T, 2) is the row-concatenation of S shard tables,
+    ``counts`` (S*T,), ``n_uniques`` (S,) their unclipped unique counts.
+    Returns :func:`build_pair_table`'s ``(keys, counts, n_unique,
+    max_count)`` for the concatenated corpus: the lex-first
+    ``table_size`` keys with their summed counts; ``n_unique`` is raised
+    past ``table_size`` when any shard overflowed (see the JAX package's
+    docstring for why the kept counts stay exact)."""
+    k64 = _key64(keys[:, 0], keys[:, 1])
+    sk, order = torch.sort(k64, stable=True)
+    sc = counts[order].long()
+    uniq, inv = torch.unique_consecutive(sk, return_inverse=True)
+    sums = torch.zeros(uniq.shape[0], dtype=torch.int64,
+                       device=keys.device).index_add_(0, inv, sc)
+    real = uniq != _KEY_SENT64
+    uniq = uniq[real]
+    sums = sums[real]
+    n_unique = uniq.shape[0]
+    keep = min(n_unique, table_size)
+    dev = keys.device
+    out_k = torch.full((table_size, 2), PKEY_SENT, dtype=torch.int32,
+                       device=dev)
+    out_c = torch.zeros((table_size,), dtype=torch.int32, device=dev)
+    out_k[:keep, 0] = (uniq[:keep] >> 32).to(torch.int32)
+    out_k[:keep, 1] = (uniq[:keep] & 0xFFFFFFFF).to(torch.int32)
+    out_c[:keep] = sums[:keep].to(torch.int32)
+    nu = torch.tensor(n_unique, dtype=torch.int32, device=dev)
+    if bool(torch.any(n_uniques > table_size)):
+        nu = torch.clamp_min(nu, table_size + 1)
+    return out_k, out_c, nu, out_c.max()
+
+
+# ----------------------------------------------- single-rule replay, scans
+
+def apply_merge_to_corpus(corpus: torch.Tensor, i, j, new_id
+                          ) -> torch.Tensor:
+    """Replace left-to-right non-overlapping adjacent (i, j) by ``new_id``
+    (within a run of matches every other one, from the run head), leaving
+    PAD at the consumed positions; :func:`compact_corpus` removes them."""
+    nxt = _shift_left(corpus, PAD_ID)
+    m = (corpus == i) & (nxt == j)
+    idx = torch.arange(corpus.shape[0], device=corpus.device,
+                       dtype=torch.int32)
+    applied = _parity_take(m, idx)
+    out = torch.where(applied, torch.as_tensor(new_id, dtype=corpus.dtype,
+                                               device=corpus.device), corpus)
+    return torch.where(_shift_right(applied, False),
+                       torch.full_like(out, PAD_ID), out)
+
+
+def replay_merges_on_corpus(corpus: torch.Tensor, pairs: torch.Tensor,
+                            n_init: int, count: int) -> torch.Tensor:
+    """Apply ``count`` merges one at a time (merge k makes id
+    ``n_init + k``), compacting between them so that later merges see the
+    pairs earlier ones made. O(count * N): the chunked replays above are
+    the fast form."""
+    c = corpus
+    for k in range(int(count)):
+        c = compact_corpus(apply_merge_to_corpus(
+            c, pairs[k, 0], pairs[k, 1], int(n_init) + k))
+    return c
+
+
+def match_rules(key_hi: torch.Tensor, key_lo: torch.Tensor,
+                merges: torch.Tensor, start: int, count: int,
+                n_init: int) -> torch.Tensor:
+    """Merged-token id for each (hi, lo) pair key under merges
+    [start, start+count) (merge k makes id ``n_init + k``), or -1. The JAX
+    package tiles a broadcast compare for the TPU; a sorted search gives
+    the same ids."""
+    valid = key_hi != PKEY_SENT
+    return _match_rules(key_hi, key_lo, valid, merges, int(start),
+                        int(count), n_init)
+
+
+# The JAX package builds its scans from two-level blocks to keep XLA
+# compile times down on the TPU; PyTorch's scans give the same int32
+# results, and the names stay so that a reader finds the counterparts.
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum, in ``x``'s dtype."""
+    return torch.cumsum(x, dim=0).to(x.dtype)
+
+
+def blocked_cummax(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cummax."""
+    return torch.cummax(x, dim=0).values
+
+
+def blocked_cummin_reverse(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive suffix cummin."""
+    return torch.flip(torch.cummin(torch.flip(x, (0,)), dim=0).values, (0,))
+
+
+def blocked_cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-row inclusive cumsum of a (P, T) array, in ``x``'s dtype."""
+    return torch.cumsum(x, dim=1).to(x.dtype)

@@ -253,11 +253,53 @@ def test_base_cli_resume_and_metrics(corpus_file, tmp_path):
         np.load(os.path.join(whole, "embeddings.npy")))
 
 
+@pytest.fixture
+def no_process_group():
+    """A test that makes a world of one in this process leaves none."""
+    import torch.distributed as dist
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("flag", ["--mesh", "--multihost"])
-def test_sharded_flags_refuse(corpus_file, tmp_path, flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        TE.main(["--corpus-path", corpus_file, "--device", "cpu",
-                 "--output-dir", str(tmp_path / "o"), flag])
+def test_sharded_flags_refuse(corpus_file, enhanced_dirs, tmp_path, flag,
+                              no_process_group):
+    """``--mesh`` (a CPU world of one) and ``--multihost`` with no
+    coordinator (one process, as in JAX) train through the sharded path
+    (the v3 sync at D = 1, the corpus aligned by --corpus-shards' default
+    8) and give the unsharded CLI's merges and rows, bit for bit. (The
+    name is kept from when these flags refused to run.)"""
+    out = str(tmp_path / "o")
+    with pytest.MonkeyPatch.context() as mp:
+        jax_draws(mp)
+        tok = TE.main(["--corpus-path", corpus_file] + ENH_ARGS
+                      + ["--output-dir", out, "--device", "cpu", flag])
+    assert tok.mesh is not None and tok.mesh.size == 1
+    from hyptokenizer_tpu_torch.parallel.sharded import select_sync_path
+    assert select_sync_path(tok.enh_state, tok.enh_config, tok.mesh) == "v3"
+    ref = enhanced_dirs[1]
+    assert _read(out, "merges.json") == _read(ref, "merges.json")
+    assert len(_read(out, "merges.json")) > 10
+    np.testing.assert_array_equal(
+        np.load(os.path.join(out, "embeddings.npy")),
+        np.load(os.path.join(ref, "embeddings.npy")))
+
+
+def test_bench_scaling_cli(capsys, no_process_group):
+    """The port's bench_scaling (a world of one) prints the JAX CLI's
+    JSON line (tests/test_cli.py's test_bench_scaling_cli)."""
+    from hyptokenizer_tpu_torch.cli import bench_scaling
+    res = bench_scaling.main(["--max-vocab-size", "256", "--n-init", "64",
+                              "--embedding-dim", "8", "--steps", "32",
+                              "--warmup", "8", "--device", "cpu"])
+    out = capsys.readouterr().out
+    data = json.loads(out.strip().splitlines()[-1])
+    assert set(data) == {"process", "n_processes", "loop",
+                         "steps_per_sec_by_devices"}
+    assert data["n_processes"] == 1 and data["process"] == 0
+    assert all(v > 0 for v in data["steps_per_sec_by_devices"].values())
+    assert int(res["states"][1].step) == 40
 
 
 def test_preprocess_wiki_matches_jax(corpus_file, tmp_path):

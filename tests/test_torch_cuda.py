@@ -17,7 +17,9 @@ ties within 1e-5. Kernel K4 (ops/cuda/csrc/merge_loop.cu) is held to
 (``selfcheck._check_base_kernel``) and step by step at d=100 and wider
 (``selfcheck._lockstep_base_steps``), with all, part or none of its rows
 in shared memory. K1/K2 also run ``merge_batch`` 64, K2 a state padded to
-8192 active rows, and K2/K3 wide states (d+1 = 129, 301 and more). The K2
+8192 active rows, and K2/K3 wide states (d+1 = 129, 301 and more). K2
+also reads a hash-partitioned pair table (``n_buckets = 4``, the v3
+sharded sync's layout), step by step against its plain version. The K2
 and K4 wrappers refuse CPU and non-contiguous tensors.
 """
 
@@ -372,6 +374,37 @@ def test_k2_chunk_lockstep_with_plain(cuda, kw):
     assert out["k2"] == "pass", out
     assert out["k2_merges"] >= 16
     assert K1.dense_launches > 0 and K1.launches == 0
+
+
+def hashed_sync(d):
+    """The corpus sync with its table laid out as the v3 sharded sync lays
+    it out for ``d`` ranks (``parallel.sharded.hash_partition_table``)."""
+    from hyptokenizer_tpu_torch.parallel.sharded import hash_partition_table
+
+    def sync(st, cfg, sampler):
+        st = E.sync_corpus(st, cfg, sampler)
+        keys, counts = hash_partition_table(st.pair_keys, st.pair_counts, d)
+        return dataclasses.replace(st, pair_keys=keys, pair_counts=counts)
+    return sync
+
+
+@pytest.mark.parametrize("kw", [{}, dict(merge_batch=16)],
+                         ids=["all-features", "batch16"])
+def test_k2_hashed_lookup_matches_plain(cuda, kw):
+    """K2 with ``n_buckets = 4`` (``pair_table_hashed``) reading a table
+    in the v3 layout for 4 ranks, against its plain version step by step:
+    the lookup searches the pair's owner slice in both."""
+    import types
+    tok = dense_tokenizer(cuda, **kw)
+    holder = types.SimpleNamespace(
+        enh_state=tok.enh_state,
+        enh_config=dataclasses.replace(tok.enh_config, pair_table_hashed=4))
+    out = {}
+    K1.reset_launches()
+    selfcheck._lockstep_steps(holder, 4, out, "k2h", sync=hashed_sync(4))
+    assert out["k2h"] == "pass", out
+    assert out["k2h_merges"] >= 16
+    assert K1.dense_launches == out["k2h_steps"] and K1.launches == 0
 
 
 def test_k2_training_on_the_card(cuda):

@@ -212,6 +212,11 @@ def test_import_leaves_jax_out():
         "import hyptokenizer_tpu_torch.cli.train_enhanced_tokenizer\n"
         "import hyptokenizer_tpu_torch.cli.train_graph_embeddings\n"
         "import hyptokenizer_tpu_torch.cli.eval_hierarchy\n"
+        "import hyptokenizer_tpu_torch.cli.bench_scaling\n"
+        "import hyptokenizer_tpu_torch.parallel\n"
+        "import hyptokenizer_tpu_torch.parallel.mesh\n"
+        "import hyptokenizer_tpu_torch.parallel.multihost\n"
+        "import hyptokenizer_tpu_torch.parallel.sharded\n"
         "import hyptokenizer_tpu_torch.models\n"
         "import hyptokenizer_tpu_torch.models.nlp\n"
         "import hyptokenizer_tpu_torch.models.retrieval\n"
