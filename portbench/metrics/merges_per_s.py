@@ -1,0 +1,6 @@
+"""Merges of the window's whole trainings over the window's seconds."""
+from portbench.readings import window_rate
+
+
+def read(run):
+    return window_rate(run, "merges")
