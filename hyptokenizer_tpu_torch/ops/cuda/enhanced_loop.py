@@ -38,6 +38,7 @@ import torch
 from hyptokenizer_tpu_torch.ops.cuda import _build
 from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 from hyptokenizer_tpu_torch.tokenizer import scoring
+from hyptokenizer_tpu_torch.utils import metrics
 
 SOURCE = "enhanced_loop"
 MAX_BATCH = 8192        # the batch's arrays fill shared memory beyond this
@@ -187,7 +188,14 @@ def _check_cuda_state(st, config) -> None:
 def run_segment_cuda(st, config, m_budget: int, s_budget: int,
                      curv_stop: int, n_steps: int = SEGMENT_STEPS):
     """One launch of the configuration's kernel (K1, or K2 with the dense
-    channel): up to ``n_steps`` steps, in place."""
+    channel): up to ``n_steps`` steps, in place (span ``segment.launch``)."""
+    with metrics.span("segment.launch"):
+        return _launch_segment(st, config, m_budget, s_budget, curv_stop,
+                               n_steps)
+
+
+def _launch_segment(st, config, m_budget: int, s_budget: int,
+                    curv_stop: int, n_steps: int):
     global launches, dense_launches
     _check_cuda_state(st, config)
     dense = uses_dense(config)
@@ -265,15 +273,33 @@ def run_segment(st, config, m_budget: int, s_budget: int, curv_stop: int,
                             n_steps)
 
 
+def _segment_end(sc: dict, m_budget: int, s_budget: int,
+                 curv_stop: int) -> str:
+    """Why a segment ended, from the scalars after it: the first halt
+    condition that holds, else ``cap`` (it ran all its steps)."""
+    for reason, hit in (("stopped", sc["stopped"]),
+                        ("resync", sc["needs_resync"]),
+                        ("merges", sc["num_merges"] >= m_budget),
+                        ("steps", sc["step"] >= s_budget),
+                        ("curvature", sc["num_merges"] >= curv_stop)):
+        if hit:
+            return reason
+    return "cap"
+
+
 def run_chunk(st, config, n_steps: int, sampler,
               segment_steps: int = SEGMENT_STEPS, plain: bool = False,
               sync=None):
     """One sync, then segments until ``n_steps`` merges, a resync, a stop or
     the step budget. ``plain`` runs the plain version on any device;
     ``sync`` replaces ``enhanced_state.sync_corpus`` (the sharded syncs of
-    ``parallel/sharded.py``, same arguments)."""
-    st = (sync or E.sync_corpus)(st, config, sampler)
-    sc = E.state_scalars(st)
+    ``parallel/sharded.py``, same arguments). Spans: ``sync`` (the sync and
+    the scalars' read that waits for it), ``segment.wait`` (the scalars'
+    read after each segment); counters ``segment.end.<reason>``
+    (:func:`_segment_end`)."""
+    with metrics.span("sync"):
+        st = (sync or E.sync_corpus)(st, config, sampler)
+        sc = E.state_scalars(st)
     m_budget = sc["num_merges"] + n_steps
     s_budget = sc["step"] + n_steps + 1024
     freq = config.curvature_freq if config.use_adaptive_curvature else 0
@@ -284,7 +310,11 @@ def run_chunk(st, config, n_steps: int, sampler,
                      else NO_CURVATURE_STOP)
         st = run_segment(st, config, m_budget, s_budget, curv_stop, sampler,
                          segment_steps, plain)
-        now = E.state_scalars(st)
+        with metrics.span("segment.wait"):
+            now = E.state_scalars(st)
+        if metrics.tracing():
+            metrics.count("segment.end." + _segment_end(
+                now, m_budget, s_budget, curv_stop))
         if now["step"] == sc["step"] and not (now["stopped"]
                                               or now["needs_resync"]):
             raise RuntimeError(

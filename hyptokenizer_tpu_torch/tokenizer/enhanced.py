@@ -125,93 +125,90 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
                                        or use_compression_aware
                                        or use_hierarchical)
         self._init_candidates = use_dense_channel or not needs_corpus
-        t_ctor0 = time.perf_counter()
-        super().__init__(
-            vocab, embeddings, curvature=curvature,
-            merge_threshold=merge_threshold, lr=lr, device=device,
-            max_vocab_size=max_vocab_size,
-            use_approximate_search=use_approximate_search,
-            search_block=search_block, normalizer=normalizer,
-            merge_policy=merge_policy, mesh=mesh)
-        self.language = language
-        self.corpus_shrink = corpus_shrink
-        # The length cap, mirrored so that load's candidate re-scan applies
-        # the gate that training applies.
-        self.config = dataclasses.replace(self.config,
-                                          max_token_len=max_token_len)
-        self.callbacks: List[Callable] = []
-        self.enh_config = E.EnhancedConfig(
-            base=MergeConfig(max_vocab_size=self.max_vocab_size,
-                             search_block=search_block,
-                             max_token_len=max_token_len),
-            n_init=len(self.vocab),
-            has_corpus=has_corpus,
-            merge_batch=merge_batch,
-            min_pair_freq=min_pair_freq,
-            use_dense_channel=use_dense_channel,
-            priority_replay=(merge_policy == "priority"),
-            use_frequency=use_frequency_aware,
-            alpha=alpha, beta=beta, gamma=gamma,
-            use_compression=use_compression_aware,
-            compression_weight=compression_weight,
-            use_hierarchical=use_hierarchical,
-            use_adaptive_curvature=use_adaptive_curvature,
-            curvature_freq=optimize_curvature_freq,
-            curvature_lr=curvature_lr,
-            hierarchy_weight=hierarchy_weight,
-            distortion_weight=distortion_weight,
-            freq_table_size=freq_table_size,
-            queue_size=max(min(queue_size, freq_table_size), merge_batch, 1),
-        )
-        self.sampler = E.TorchSampler(seed, self.device)
-        self.current_phase = 1
-        base_s = time.perf_counter() - t_ctor0
-
-        t0 = time.perf_counter()
-        texts: List[str] = []
-        if corpus_path:
-            with open(corpus_path, encoding="utf-8") as f:
-                texts = [ln.rstrip("\n") for ln in f]
-        elif corpus_sample:
-            texts = list(corpus_sample)
-        self.corpus_sample = texts
-        self.corpus_shards = corpus_shards
-        corpus_ids = self._encode_initial_corpus(texts, corpus_max_tokens,
-                                                 corpus_shards)
-        corpus_s = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        if use_hierarchical and texts:
-            self.morphology = morphology.analyze_corpus(texts)
-        else:
-            self.morphology = morphology.MorphologyTables()
-        mk, ms, wk, ws = self.morphology.hash_tables()
-        morph_s = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        t_hash, b_len, vflag = _token_features(self.vocab)
-        t_feat = np.concatenate(
-            [t_hash, b_len[:, None], vflag[:, None].astype(np.int32)],
-            axis=1).astype(np.int32)
-        fields = E.assemble_enhanced_buffers(
-            t_feat, mk, wk, ms, ws, self.max_vocab_size,
-            self.enh_config.freq_table_size, self.enh_config.queue_size,
-            self.enh_config.coherence_samples, self.device)
-        self.enh_state = E.EnhancedState(base=self.state, corpus=corpus_ids,
-                                         **fields)
-        if use_hierarchical:
-            # The phase-1 threshold applies from the start.
-            self.enh_state.base.threshold = torch.tensor(
-                self.enh_config.phase_thresholds[0], dtype=torch.float32,
-                device=self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with metrics.span("constructor") as whole:
+            with metrics.span("constructor.base") as base:
+                super().__init__(
+                    vocab, embeddings, curvature=curvature,
+                    merge_threshold=merge_threshold, lr=lr, device=device,
+                    max_vocab_size=max_vocab_size,
+                    use_approximate_search=use_approximate_search,
+                    search_block=search_block, normalizer=normalizer,
+                    merge_policy=merge_policy, mesh=mesh)
+                self.language = language
+                self.corpus_shrink = corpus_shrink
+                # The length cap, mirrored so that load's candidate re-scan
+                # applies the gate that training applies.
+                self.config = dataclasses.replace(
+                    self.config, max_token_len=max_token_len)
+                self.callbacks: List[Callable] = []
+                self.enh_config = E.EnhancedConfig(
+                    base=MergeConfig(max_vocab_size=self.max_vocab_size,
+                                     search_block=search_block,
+                                     max_token_len=max_token_len),
+                    n_init=len(self.vocab),
+                    has_corpus=has_corpus,
+                    merge_batch=merge_batch,
+                    min_pair_freq=min_pair_freq,
+                    use_dense_channel=use_dense_channel,
+                    priority_replay=(merge_policy == "priority"),
+                    use_frequency=use_frequency_aware,
+                    alpha=alpha, beta=beta, gamma=gamma,
+                    use_compression=use_compression_aware,
+                    compression_weight=compression_weight,
+                    use_hierarchical=use_hierarchical,
+                    use_adaptive_curvature=use_adaptive_curvature,
+                    curvature_freq=optimize_curvature_freq,
+                    curvature_lr=curvature_lr,
+                    hierarchy_weight=hierarchy_weight,
+                    distortion_weight=distortion_weight,
+                    freq_table_size=freq_table_size,
+                    queue_size=max(min(queue_size, freq_table_size),
+                                   merge_batch, 1),
+                )
+                self.sampler = E.TorchSampler(seed, self.device)
+                self.current_phase = 1
+            with metrics.span("constructor.corpus") as corpus:
+                texts: List[str] = []
+                if corpus_path:
+                    with open(corpus_path, encoding="utf-8") as f:
+                        texts = [ln.rstrip("\n") for ln in f]
+                elif corpus_sample:
+                    texts = list(corpus_sample)
+                self.corpus_sample = texts
+                self.corpus_shards = corpus_shards
+                corpus_ids = self._encode_initial_corpus(
+                    texts, corpus_max_tokens, corpus_shards)
+            with metrics.span("constructor.morphology") as morph:
+                if use_hierarchical and texts:
+                    self.morphology = morphology.analyze_corpus(texts)
+                else:
+                    self.morphology = morphology.MorphologyTables()
+                mk, ms, wk, ws = self.morphology.hash_tables()
+            with metrics.span("constructor.assemble") as assemble:
+                t_hash, b_len, vflag = _token_features(self.vocab)
+                t_feat = np.concatenate(
+                    [t_hash, b_len[:, None],
+                     vflag[:, None].astype(np.int32)], axis=1).astype(np.int32)
+                fields = E.assemble_enhanced_buffers(
+                    t_feat, mk, wk, ms, ws, self.max_vocab_size,
+                    self.enh_config.freq_table_size,
+                    self.enh_config.queue_size,
+                    self.enh_config.coherence_samples, self.device)
+                self.enh_state = E.EnhancedState(
+                    base=self.state, corpus=corpus_ids, **fields)
+                if use_hierarchical:
+                    # The phase-1 threshold applies from the start.
+                    self.enh_state.base.threshold = torch.tensor(
+                        self.enh_config.phase_thresholds[0],
+                        dtype=torch.float32, device=self.device)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
         self.ctor_stats = {
-            "ctor_total_s": round(time.perf_counter() - t_ctor0, 3),
-            "ctor_base_s": round(base_s, 3),
-            "ctor_corpus_s": round(corpus_s, 3),
-            "ctor_morph_s": round(morph_s, 3),
-            "ctor_assemble_s": round(time.perf_counter() - t0, 3),
+            "ctor_total_s": round(whole.host_s, 3),
+            "ctor_base_s": round(base.host_s, 3),
+            "ctor_corpus_s": round(corpus.host_s, 3),
+            "ctor_morph_s": round(morph.host_s, 3),
+            "ctor_assemble_s": round(assemble.host_s, 3),
         }
 
     # ------------------------------------------------------------------ setup
@@ -265,8 +262,9 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
         self.callbacks.append(fn)
 
     def _sync_merges_from_device(self) -> int:
-        self.state = self.enh_state.base
-        return super()._sync_merges_from_device()
+        with metrics.span("chunk.strings"):
+            self.state = self.enh_state.base
+            return super()._sync_merges_from_device()
 
     # ---------------------------------------------------------------- training
     def optimize_merges(self, steps: int = 10_000, log_every: int = 1000,
@@ -348,27 +346,28 @@ class EnhancedHyperbolicTokenizer(HyperbolicTokenizer):
             else:
                 train_seconds += dt
             done += chunk
-            self.current_phase = int(self.enh_state.phase)
-            dstats = self.distance_statistics()
-            chunk_merges = len(self.merge_history) - prev_merges
-            prev_merges = len(self.merge_history)
-            stat = {
-                "step": int(self.state.step),
-                "vocab_size": len(self.vocab),
-                "merges": len(self.merge_history),
-                "threshold": float(self.state.threshold),
-                "curvature": float(self.state.curvature),
-                "phase": self.current_phase,
-                "steps_per_sec": chunk / dt if dt > 0 else float("inf"),
-                "chunk_merges": chunk_merges,
-                "chunk_seconds": dt,
-                "chunk_syncs": syncs,
-                "pair_table_unique": int(self.enh_state.pair_unique),
-                "min_dist": dstats["min"],
-                "max_dist": dstats["max"],
-                "mean_dist": dstats["mean"],
-                "std_dist": dstats["std"],
-            }
+            with metrics.span("chunk.stats"):
+                self.current_phase = int(self.enh_state.phase)
+                dstats = self.distance_statistics()
+                chunk_merges = len(self.merge_history) - prev_merges
+                prev_merges = len(self.merge_history)
+                stat = {
+                    "step": int(self.state.step),
+                    "vocab_size": len(self.vocab),
+                    "merges": len(self.merge_history),
+                    "threshold": float(self.state.threshold),
+                    "curvature": float(self.state.curvature),
+                    "phase": self.current_phase,
+                    "steps_per_sec": chunk / dt if dt > 0 else float("inf"),
+                    "chunk_merges": chunk_merges,
+                    "chunk_seconds": dt,
+                    "chunk_syncs": syncs,
+                    "pair_table_unique": int(self.enh_state.pair_unique),
+                    "min_dist": dstats["min"],
+                    "max_dist": dstats["max"],
+                    "mean_dist": dstats["mean"],
+                    "std_dist": dstats["std"],
+                }
             if stat["pair_table_unique"] > self.enh_config.freq_table_size:
                 logger.warning(
                     "pair table overflow: %d unique corpus pairs > table "

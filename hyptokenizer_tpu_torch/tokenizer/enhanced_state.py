@@ -33,6 +33,7 @@ from hyptokenizer_tpu_torch.tokenizer import scoring
 from hyptokenizer_tpu_torch.tokenizer.state import (
     THRESHOLD_CAP, MergeConfig, MergeState, StatsSampler, insert_batch,
 )
+from hyptokenizer_tpu_torch.utils import metrics
 
 INF = float("inf")
 GRAD_EPS = 1e-6  # acosh clamp for differentiable paths (ops/lorentz.py)
@@ -393,31 +394,35 @@ def _maybe_update_curvature(st: EnhancedState, config: EnhancedConfig,
     freq = config.curvature_freq
     if nm // freq <= int(st.curv_last) // freq:
         return st
-    draws = sampler.curvature(config.hier_pairs, config.hier_negatives,
-                              config.distortion_samples,
-                              max(int(base.vocab_size), 1))
-    with torch.enable_grad():
-        c = base.curvature.detach().clone().requires_grad_(True)
-        g = torch.autograd.grad(_curvature_losses(st, config, draws, c), c)[0]
-    t = st.curv_t + 1
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    m = b1 * st.curv_m + (1 - b1) * g
-    v = b2 * st.curv_v + (1 - b2) * g * g
-    mhat = m / (1 - b1 ** t.float())
-    vhat = v / (1 - b2 ** t.float())
-    c_new = base.curvature - config.curvature_lr * mhat / (
-        torch.sqrt(vhat) + eps)
-    c_new = torch.clamp(c_new, config.curvature_min, config.curvature_max)
-    # Distances scale by 1/sqrt(c): cached candidate distances are rescaled,
-    # not recomputed (exact under the distance-scale curvature model).
-    scale = torch.sqrt(base.curvature / c_new)
-    best_dist = torch.where(torch.isfinite(base.best_dist),
-                            base.best_dist * scale, base.best_dist)
-    return dataclasses.replace(
-        st, base=dataclasses.replace(base, curvature=c_new,
-                                     best_dist=best_dist),
-        q_dist=st.q_dist * scale, curv_m=m, curv_v=v, curv_t=t,
-        curv_last=torch.full_like(st.curv_last, nm))
+    with metrics.span("curvature_adam"):
+        draws = sampler.curvature(config.hier_pairs, config.hier_negatives,
+                                  config.distortion_samples,
+                                  max(int(base.vocab_size), 1))
+        with torch.enable_grad():
+            c = base.curvature.detach().clone().requires_grad_(True)
+            g = torch.autograd.grad(
+                _curvature_losses(st, config, draws, c), c)[0]
+        t = st.curv_t + 1
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        m = b1 * st.curv_m + (1 - b1) * g
+        v = b2 * st.curv_v + (1 - b2) * g * g
+        mhat = m / (1 - b1 ** t.float())
+        vhat = v / (1 - b2 ** t.float())
+        c_new = base.curvature - config.curvature_lr * mhat / (
+            torch.sqrt(vhat) + eps)
+        c_new = torch.clamp(c_new, config.curvature_min,
+                            config.curvature_max)
+        # Distances scale by 1/sqrt(c): cached candidate distances are
+        # rescaled, not recomputed (exact under the distance-scale curvature
+        # model).
+        scale = torch.sqrt(base.curvature / c_new)
+        best_dist = torch.where(torch.isfinite(base.best_dist),
+                                base.best_dist * scale, base.best_dist)
+        return dataclasses.replace(
+            st, base=dataclasses.replace(base, curvature=c_new,
+                                         best_dist=best_dist),
+            q_dist=st.q_dist * scale, curv_m=m, curv_v=v, curv_t=t,
+            curv_last=torch.full_like(st.curv_last, nm))
 
 
 # -------------------------------------------------------------------- step
@@ -581,24 +586,30 @@ def enhanced_step(st: EnhancedState, config: EnhancedConfig,
 def sync_corpus(st: EnhancedState, config: EnhancedConfig,
                 sampler) -> EnhancedState:
     """Replay un-synced merges onto the corpus, rebuild the pair table and
-    the candidate queues."""
+    the candidate queues (spans ``sync.replay``, ``sync.pair_table`` and
+    ``sync.queues``)."""
     if not config.needs_corpus:
         return st
     if config.frozen_freqs:
         # No corpus to replay: keep the restored counts, rescore the queues
         # against the current embeddings and curvature.
-        return _sync_finish(st, config, sampler, st.corpus, st.pair_keys,
-                            st.pair_counts, st.pair_unique, st.max_pair_count)
+        with metrics.span("sync.queues"):
+            return _sync_finish(st, config, sampler, st.corpus, st.pair_keys,
+                                st.pair_counts, st.pair_unique,
+                                st.max_pair_count)
     base = st.base
     replay = (scoring.batch_rank_replay if config.priority_replay
               else scoring.batch_fixpoint_replay)
-    start = int(st.corpus_synced)
-    corpus = replay(st.corpus, base.merges, start,
-                    int(base.num_merges) - start, config.n_init)
-    keys, counts, n_unique, max_count = scoring.build_pair_table(
-        corpus, config.freq_table_size)
-    return _sync_finish(st, config, sampler, corpus, keys, counts, n_unique,
-                        max_count)
+    with metrics.span("sync.replay"):
+        start = int(st.corpus_synced)
+        corpus = replay(st.corpus, base.merges, start,
+                        int(base.num_merges) - start, config.n_init)
+    with metrics.span("sync.pair_table"):
+        keys, counts, n_unique, max_count = scoring.build_pair_table(
+            corpus, config.freq_table_size)
+    with metrics.span("sync.queues"):
+        return _sync_finish(st, config, sampler, corpus, keys, counts,
+                            n_unique, max_count)
 
 
 def _sync_finish(st: EnhancedState, config: EnhancedConfig, sampler,
@@ -680,7 +691,8 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
     followed by kernel segments on the card, or by the plain step loop for a
     state on the CPU (``ops/cuda/enhanced_loop.run_chunk``). ``sync``
     replaces :func:`sync_corpus` (the sharded syncs,
-    ``parallel/sharded.py``).
+    ``parallel/sharded.py``). Counters: ``sync.opening`` for the first
+    sync, ``sync.resync.<reason>`` for each resync (:func:`_resync_reason`).
     """
     if (config.use_dense_channel or not config.needs_corpus) and \
             bool(st.base.best_dist[0] == -INF):
@@ -694,6 +706,9 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
     before = int(st.base.num_merges)
     rounds = 0
     while True:
+        if metrics.tracing():
+            metrics.count(_resync_reason(st, config, before) if rounds
+                          else "sync.opening")
         st = enhanced_loop.run_chunk(st, config, remaining, sampler,
                                      sync=sync)
         rounds += 1
@@ -705,6 +720,20 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
         if not bool(st.needs_resync):
             break  # candidate drought / step cap: the caller decides
     return st, rounds
+
+
+def _resync_reason(st: EnhancedState, config: EnhancedConfig,
+                   num_merges: int) -> str:
+    """The counter of a resync at ``num_merges`` merges: ``truncated`` when
+    the current phase's queue held the top ``queue_size`` of more valid
+    pairs, else ``spent``. One read of the device and no kernel: the phase
+    is the merge count's, as ``enhanced_step`` sets it."""
+    pidx = 0
+    if config.use_hierarchical:
+        pidx = ((num_merges >= config.phase2_step)
+                + (num_merges >= config.phase3_step))
+    truncated = int(st.q_valid_total[pidx]) > config.queue_size
+    return f"sync.resync.{'truncated' if truncated else 'spent'}"
 
 
 def state_scalars(st: EnhancedState) -> dict:

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hyptokenizer_tpu_torch.utils import metrics
+
 PAD_ID = -1   # corpus hole / tail
 SEP_ID = -2   # line or segment separator: breaks adjacency, survives compaction
 
@@ -210,7 +212,9 @@ def _replay(corpus, merges, start: int, count: int, n_init: int, select):
     idx = torch.arange(corpus.shape[0], device=corpus.device,
                        dtype=torch.int32)
     c = corpus
+    passes = 0
     while True:
+        passes += 1
         hi, lo, valid = _adjacent_pair_keys(c)
         mid = _match_rules(hi, lo, valid, merges, start, count, n_init)
         m = mid >= 0
@@ -220,6 +224,7 @@ def _replay(corpus, merges, start: int, count: int, n_init: int, select):
                           torch.full_like(out, PAD_ID), out)
         c = compact_corpus(out)
         if not can_chain or not bool(torch.any(applied)):
+            metrics.count("replay.passes", passes)
             return c
 
 
@@ -228,8 +233,14 @@ def batch_fixpoint_replay(corpus: torch.Tensor, merges: torch.Tensor,
                           ) -> torch.Tensor:
     """Apply merges [start, start+count) as one rule table to fixpoint, the
     leftmost match winning (the reference's ``tokenize()`` semantics)."""
-    return _replay(corpus, merges, start, count, n_init,
-                   lambda m, mid, idx: _parity_take(m, idx))
+    return _replay(corpus, merges, start, count, n_init, _select_leftmost)
+
+
+def _select_leftmost(m: torch.Tensor, mid: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """Greedy left-to-right matching: one round."""
+    metrics.count("replay.match_rounds")
+    return _parity_take(m, idx)
 
 
 def _select_matching(m: torch.Tensor, pri: torch.Tensor,
@@ -238,13 +249,16 @@ def _select_matching(m: torch.Tensor, pri: torch.Tensor,
     big = 2**31 - 1
     alive = m
     sel = torch.zeros_like(m)
+    rounds = 0
     while bool(torch.any(alive)):
+        rounds += 1
         p = torch.where(alive, pri, torch.full_like(pri, big))
         cand = alive & (p <= _shift_right(p, big)) & (p <= _shift_left(p, big))
         take = _parity_take(cand, idx)
         sel = sel | take
         near = take | _shift_right(take, False) | _shift_left(take, False)
         alive = alive & ~near
+    metrics.count("replay.match_rounds", rounds)
     return sel
 
 

@@ -11,11 +11,11 @@ of block 0 add SM cycles per phase, ``csrc/common.cuh``) into
 and times with CUDA events:
 
 * K1: first the corpus-only path of ``chip_smoke.py`` (two 2048-merge
-  chunks) with its regular build, each part of a chunk timed on the host
-  between ``torch.cuda.synchronize()`` calls: the library's load, the
-  corpus syncs, the K1 launches, the curvature steps, the host's merge
-  bookkeeping and the rest (the first chunk's first sync and first launch
-  apart); then, with the profile build, the smoke's K1 check segment (from
+  chunks) with its regular build under ``torch.profiler``, split by the
+  program's spans and counters (``utils/metrics.trace_snapshot``: the
+  syncs and their parts, the K1 launches and the waits for them, the
+  curvature steps, the vocabulary strings, why each segment and sync
+  ended); then, with the profile build, the smoke's K1 check segment (from
   the trained state, synced) and K1's step floor from the same state
   (``chip_smoke.k1_floor_state``: threshold 0, no step merges);
 
@@ -44,7 +44,6 @@ import os
 import re
 import subprocess
 import sys
-import time
 
 import torch
 
@@ -130,60 +129,24 @@ def split(phases, cycles, steps, us_per_step):
                        for ph, c in zip(phases, cycles) if ph}}
 
 
-def k1_first_use(lines):
-    """The corpus-only path's chunks split on the host: each part timed
-    between synchronizes, the rest of a chunk being its
-    ``chunk_seconds`` less its parts. Returns (tokenizer, split)."""
+def k1_spans(lines):
+    """The corpus-only path's chunks under ``torch.profiler``, split by the
+    program's own spans and counters (``utils/metrics.trace_snapshot``:
+    host and event seconds per span). Returns (tokenizer, split)."""
     import chip_smoke as C
+    from torch.profiler import ProfilerActivity, profile
+
     from hyptokenizer_tpu_torch.ops.cuda import _build
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
-    from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
-    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+    from hyptokenizer_tpu_torch.utils import metrics
 
     _build.build_all([K12.SOURCE])          # nvcc is not part of a chunk
-    parts = []                              # (chunk, part, seconds)
-    chunk = [0]
-
-    def timed(name, fn, ends_chunk=False):
-        def wrap(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            parts.append((chunk[0], name, time.perf_counter() - t0))
-            chunk[0] += ends_chunk
-            return out
-        return wrap
-
-    cls = EnhancedHyperbolicTokenizer
-    patches = [(_build, "load", "library load"),
-               (E, "sync_corpus", "corpus sync"),
-               (K12, "run_segment_cuda", "K1 launch"),
-               (E, "_maybe_update_curvature", "curvature step"),
-               (cls, "_sync_merges_from_device", "host merge bookkeeping")]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
-    for mod, attr, name in patches:
-        setattr(mod, attr, timed(name, getattr(mod, attr),
-                                 ends_chunk=attr == "_sync_merges_from_device"))
-    try:
+    metrics.tracing()                       # the session's record starts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         tok, main = C.main_path(lines)
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    out = {"ctor_s": main["ctor_s"], "chunks": []}
-    for k, secs in enumerate(main["chunk_seconds"]):
-        mine = [(name, s) for c, name, s in parts if c == k]
-        split_k = {"chunk_s": secs}
-        for name, s in mine:
-            first = k == 0 and name in ("corpus sync", "K1 launch") and \
-                f"first {name}" not in split_k
-            key = f"first {name}" if first else name
-            split_k[key] = split_k.get(key, 0.0) + s
-        split_k["calls"] = {name: sum(1 for n, _ in mine if n == name)
-                            for name in {n for n, _ in mine}}
-        split_k["rest"] = secs - sum(s for _, s in mine)
-        out["chunks"].append(split_k)
-    return tok, out
+    return tok, {"ctor_s": main["ctor_s"],
+                 "chunk_seconds": main["chunk_seconds"],
+                 **metrics.trace_snapshot()}
 
 
 def profile_k1(tok):
@@ -299,8 +262,7 @@ def main():
         timeout=60).stdout.strip()}
     tok = None
     if "k1" in only:
-        tok, result["k1_first_use"] = k1_first_use(
-            data.read_corpus_lines(C.CORPUS))
+        tok, result["k1_spans"] = k1_spans(data.read_corpus_lines(C.CORPUS))
     build_profiled(overrides)
     if tok is not None:
         result.update(profile_k1(tok))
