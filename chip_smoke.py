@@ -31,7 +31,9 @@ Phases:
 3. each kernel against its plain PyTorch version on the same inputs, on
    the card, at the main path's shapes: K1 on one segment from a synced
    state (merge history exact, rows within ``ROW_ATOL``), and its step
-   floor (a segment in which no step merges); K2 by lockstep
+   floor (a segment in which no step merges); the replay's selection
+   (``replay_select``) over the flagship's 2.9M corpus slots, exactly,
+   timed beside its plain versions and ``torch.cummax``; K2 by lockstep
    with oracle resync, step by step over 4 segments from the all-features
    state (``evals/selfcheck._lockstep_steps``: merges as the JAX protocol
    compares them, rows within ``ROW_ATOL`` plus their float32 conditioning,
@@ -218,6 +220,7 @@ def main_path(lines, device="cuda"):
     the phase's numbers."""
     from hyptokenizer_tpu_torch import bench
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
+    from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
     from hyptokenizer_tpu_torch.tokenizer import (
         WORDS_WITH_SPACE, EnhancedHyperbolicTokenizer, NormalizerConfig)
 
@@ -234,12 +237,13 @@ def main_path(lines, device="cuda"):
     ctor_s = time.perf_counter() - t0
 
     K1.reset_launches()
+    RS.reset_launches()
     t0 = time.perf_counter()
     tok.optimize_merges(steps=TRAIN_STEPS, log_every=LOG_EVERY)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"enhanced_loop": K1.launches}
+    launches = {"enhanced_loop": K1.launches, "replay_select": RS.launches}
 
     merges = len(tok.merge_history)
     if merges < TRAIN_STEPS or merges != int(tok.state.num_merges):
@@ -801,6 +805,84 @@ def check_k1(tok):
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, segment_merges=n, segment_steps=steps,
         us_per_step=ms * 1e3 / steps, segment_bytes=nbytes, sync_ms=sync_ms)
+
+
+def event_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call of ``fn`` on the card: CUDA events around
+    ``reps`` calls after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_replay_select(tok, lines):
+    """The replay's selection kernel against its plain versions on the
+    card, over all the flagship's corpus slots: the matches of the first
+    ``LOG_EVERY`` trained merges on the constructor's corpus, as a mask
+    (the take) and as priorities (one matching round, then the matching to
+    its end), exactly. Then timed with CUDA events, inputs warm in L2 as
+    the replay leaves them: the kernel, the plain versions and
+    ``torch.cummax`` alone (the library call in the plain take), against
+    the bound by bytes."""
+    from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
+    from hyptokenizer_tpu_torch.tokenizer import scoring as SC
+
+    cfg = tok.enh_config
+    base = tok.enh_state.base
+    corpus = tok._encode_initial_corpus(lines,
+                                        tok.enh_state.corpus.shape[0])
+    window = min(LOG_EVERY, int(base.num_merges))
+    hi, lo, valid = SC._adjacent_pair_keys(corpus)
+    mid = SC._match_rules(hi, lo, valid, base.merges, 0, window, cfg.n_init)
+    m = mid >= 0
+    n = m.shape[0]
+    if not torch.equal(RS.parity_take(m), SC.parity_take_plain(m)):
+        fail("replay_select's take differs from the plain version")
+    sel_k, sel_p = torch.zeros_like(m), torch.zeros_like(m)
+    alive_k, flag = RS.matching_round(m, mid, sel_k)
+    alive_p, live_p = SC.matching_round_plain(m, mid, sel_p)
+    if not (torch.equal(alive_k, alive_p) and torch.equal(sel_k, sel_p)
+            and int(flag) == int(live_p)):
+        fail("replay_select's matching round differs from the plain version")
+    RS.reset_launches()
+    sel_k = SC._select_matching(m, mid)
+    rounds = RS.launches
+    alive, sel_p, plain_rounds = m, torch.zeros_like(m), 0
+    while bool(alive.any()):
+        plain_rounds += 1
+        alive, _ = SC.matching_round_plain(alive, mid, sel_p)
+    if not torch.equal(sel_k, sel_p) or rounds != plain_rounds:
+        fail(f"replay_select's matching ({rounds} rounds) differs from the "
+             f"plain version's ({plain_rounds})")
+
+    sel = torch.zeros_like(m)
+    idx = torch.arange(n, device=m.device, dtype=torch.int32)
+    heads = torch.where(m & ~SC._shift_right(m, False), idx,
+                        torch.full_like(idx, -1))
+    take_ms = event_ms(lambda: RS.parity_take(m))
+    round_ms = event_ms(lambda: RS.matching_round(m, mid, sel))
+    plain_take_ms = event_ms(lambda: SC.parity_take_plain(m), reps=5)
+    plain_ms = event_ms(lambda: SC.matching_round_plain(m, mid, sel), reps=5)
+    library_ms = event_ms(lambda: torch.cummax(heads, dim=0), reps=5)
+    # Each entry read once and written once: the mask and the take (2
+    # bytes); alive, pri and sel read, sel and the new alive written (8).
+    return dict(
+        name="replay_select", route="cuda",
+        source="hyptokenizer_tpu_torch/ops/cuda/csrc/replay_select.cu",
+        replaces="hyptokenizer_tpu/tokenizer/scoring.py:141 blocked_cummax "
+                 "(an XLA scan, no pallas_call)",
+        checked=True, max_abs_err=0, slots=n, matches=int(m.sum()),
+        rounds=rounds, ms=round_ms, take_ms=take_ms, plain_ms=plain_ms,
+        plain_take_ms=plain_take_ms, library_ms=library_ms,
+        bound_ms=8 * n / H100_BYTES_PER_S * 1e3,
+        bound_take_ms=2 * n / H100_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
 def k1_floor_state(st0, cfg):
@@ -2086,6 +2168,15 @@ def main() -> None:
           f"sync "
           f"{k1['sync_ms']:.1f} ms",
           flush=True)
+    rs = check_replay_select(tok, lines)
+    rs["launches"] = main["launches"]["replay_select"]
+    print(f"replay_select at {rs['slots']} slots ({rs['matches']} "
+          f"matches, {rs['rounds']} rounds): round {rs['ms']:.4f} ms, take "
+          f"{rs['take_ms']:.4f} ms on the card; bound {rs['bound_ms']:.4f} / "
+          f"{rs['bound_take_ms']:.4f} ms ({rs['bound_by']}); plain "
+          f"{rs['plain_ms']:.3f} / {rs['plain_take_ms']:.3f} ms; "
+          f"torch.cummax alone {rs['library_ms']:.3f} ms; launches on the "
+          f"main path {rs['launches']}", flush=True)
     del tok
 
     tok, start, alls = main_path_all(lines)
@@ -2281,7 +2372,7 @@ def main() -> None:
         "gloo_world_two": par["gloo_all_reduce_us"]}}), flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, rs]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,14 @@ the design: an int32 id corpus replayed at chunk boundaries, a sorted
 pair-count table, token strings represented on the device by composable
 rolling hashes). The JAX package builds its scans from blocked pieces and
 its sorts from packed keys to keep XLA compile times down; here
-``torch.sort``, ``torch.cumsum``/``cummax``, ``torch.unique_consecutive``
-and ``torch.searchsorted`` do the same work directly, with identical
-results (ties included).
+``torch.sort``, ``torch.cumsum``, ``torch.unique_consecutive`` and
+``torch.searchsorted`` give identical results (ties included). Not so the
+replay's run-parity take: ``torch.cummax`` of a 1-D tensor scans in one
+thread block, which over a 2.9M-slot corpus costs milliseconds a call. On
+the card the replay's selection is the kernel
+``ops/cuda/replay_select.py``, one launch a take or a matching round;
+:func:`parity_take_plain` and :func:`matching_round_plain` are its plain
+versions, taken for CPU tensors.
 
 Every function keeps its inputs' device. Hashes and ids are int32, as in
 the JAX package; pair keys are widened to int64 only inside a function.
@@ -18,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hyptokenizer_tpu_torch.ops.cuda import replay_select
 from hyptokenizer_tpu_torch.utils import metrics
 
 PAD_ID = -1   # corpus hole / tail
@@ -191,13 +197,21 @@ def _match_rules(hi, lo, valid, merges, start: int, count: int, n_init: int):
     return torch.where(hit, rid[posc], torch.full_like(hi, -1))
 
 
-def _parity_take(m: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def parity_take_plain(m: torch.Tensor) -> torch.Tensor:
     """Within each run of consecutive True in ``m``, every other entry from
-    the run head (greedy left-to-right non-overlapping application)."""
+    the run head (greedy left-to-right non-overlapping application). The
+    plain version of ``replay_select.parity_take``."""
+    idx = torch.arange(m.shape[0], device=m.device, dtype=torch.int32)
     run_start = m & ~_shift_right(m, False)
     start_idx = torch.where(run_start, idx, torch.full_like(idx, -1))
     last_start = torch.cummax(start_idx, dim=0).values
     return m & (((idx - last_start) % 2) == 0)
+
+
+def _parity_take(m: torch.Tensor) -> torch.Tensor:
+    if m.device.type == "cpu":
+        return parity_take_plain(m)
+    return replay_select.parity_take(m)
 
 
 def _replay(corpus, merges, start: int, count: int, n_init: int, select):
@@ -209,8 +223,6 @@ def _replay(corpus, merges, start: int, count: int, n_init: int, select):
         return corpus
     window = merges[start:start + count]
     can_chain = bool(torch.any(window.max(dim=1).values >= n_init + start))
-    idx = torch.arange(corpus.shape[0], device=corpus.device,
-                       dtype=torch.int32)
     c = corpus
     passes = 0
     while True:
@@ -218,7 +230,7 @@ def _replay(corpus, merges, start: int, count: int, n_init: int, select):
         hi, lo, valid = _adjacent_pair_keys(c)
         mid = _match_rules(hi, lo, valid, merges, start, count, n_init)
         m = mid >= 0
-        applied = select(m, mid, idx)
+        applied = select(m, mid)
         out = torch.where(applied, mid, c)
         out = torch.where(_shift_right(applied, False),
                           torch.full_like(out, PAD_ID), out)
@@ -236,28 +248,40 @@ def batch_fixpoint_replay(corpus: torch.Tensor, merges: torch.Tensor,
     return _replay(corpus, merges, start, count, n_init, _select_leftmost)
 
 
-def _select_leftmost(m: torch.Tensor, mid: torch.Tensor,
-                     idx: torch.Tensor) -> torch.Tensor:
+def _select_leftmost(m: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
     """Greedy left-to-right matching: one round."""
     metrics.count("replay.match_rounds")
-    return _parity_take(m, idx)
+    return _parity_take(m)
 
 
-def _select_matching(m: torch.Tensor, pri: torch.Tensor,
-                     idx: torch.Tensor) -> torch.Tensor:
-    """Maximal matching by (rank, position): rounds of local minima."""
+def matching_round_plain(alive: torch.Tensor, pri: torch.Tensor,
+                         sel: torch.Tensor) -> tuple:
+    """One round of :func:`_select_matching`: the alive local minima of
+    ``pri`` (neighbours of equal rank by run parity from the left) join
+    ``sel``, in place. Returns the entries still alive, neither taken nor
+    beside a taken one, and whether any is (a 0-d tensor). The plain
+    version of ``replay_select.matching_round``."""
     big = 2**31 - 1
+    p = torch.where(alive, pri, torch.full_like(pri, big))
+    cand = alive & (p <= _shift_right(p, big)) & (p <= _shift_left(p, big))
+    take = parity_take_plain(cand)
+    sel |= take
+    near = take | _shift_right(take, False) | _shift_left(take, False)
+    alive = alive & ~near
+    return alive, torch.any(alive)
+
+
+def _select_matching(m: torch.Tensor, pri: torch.Tensor) -> torch.Tensor:
+    """Maximal matching by (rank, position): rounds of local minima."""
+    one_round = (matching_round_plain if m.device.type == "cpu"
+                 else replay_select.matching_round)
     alive = m
     sel = torch.zeros_like(m)
     rounds = 0
-    while bool(torch.any(alive)):
+    live = torch.any(alive)
+    while bool(live):
         rounds += 1
-        p = torch.where(alive, pri, torch.full_like(pri, big))
-        cand = alive & (p <= _shift_right(p, big)) & (p <= _shift_left(p, big))
-        take = _parity_take(cand, idx)
-        sel = sel | take
-        near = take | _shift_right(take, False) | _shift_left(take, False)
-        alive = alive & ~near
+        alive, live = one_round(alive, pri, sel)
     metrics.count("replay.match_rounds", rounds)
     return sel
 
@@ -266,8 +290,7 @@ def batch_rank_replay(corpus: torch.Tensor, merges: torch.Tensor,
                       start: int, count: int, n_init: int) -> torch.Tensor:
     """Apply merges [start, start+count) in rank order (classic BPE), which
     equals the priority-mode encoder (``encode.tokenize_priority_py``)."""
-    return _replay(corpus, merges, start, count, n_init,
-                   lambda m, mid, idx: _select_matching(m, mid, idx))
+    return _replay(corpus, merges, start, count, n_init, _select_matching)
 
 
 # ------------------------------------------------------- pair count snapshot
@@ -431,9 +454,7 @@ def apply_merge_to_corpus(corpus: torch.Tensor, i, j, new_id
     PAD at the consumed positions; :func:`compact_corpus` removes them."""
     nxt = _shift_left(corpus, PAD_ID)
     m = (corpus == i) & (nxt == j)
-    idx = torch.arange(corpus.shape[0], device=corpus.device,
-                       dtype=torch.int32)
-    applied = _parity_take(m, idx)
+    applied = _parity_take(m)
     out = torch.where(applied, torch.as_tensor(new_id, dtype=corpus.dtype,
                                                device=corpus.device), corpus)
     return torch.where(_shift_right(applied, False),
@@ -468,6 +489,10 @@ def match_rules(key_hi: torch.Tensor, key_lo: torch.Tensor,
 # The JAX package builds its scans from two-level blocks to keep XLA
 # compile times down on the TPU; PyTorch's scans give the same int32
 # results, and the names stay so that a reader finds the counterparts.
+# They are not the same work: a 1-D ``torch.cummax`` runs in one thread
+# block, and the replay, which the JAX package builds on
+# ``blocked_cummax``, takes its run parity on the card from the kernel
+# ``ops/cuda/replay_select.py`` instead.
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum, in ``x``'s dtype."""

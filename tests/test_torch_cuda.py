@@ -20,7 +20,11 @@ in shared memory. K1/K2 also run ``merge_batch`` 64, K2 a state padded to
 8192 active rows, and K2/K3 wide states (d+1 = 129, 301 and more). K2
 also reads a hash-partitioned pair table (``n_buckets = 4``, the v3
 sharded sync's layout), step by step against its plain version. The K2
-and K4 wrappers refuse CPU and non-contiguous tensors.
+and K4 wrappers refuse CPU and non-contiguous tensors. The replay's
+selection kernel (ops/cuda/csrc/replay_select.cu) is held to
+``scoring.parity_take_plain`` and ``matching_round_plain`` exactly, at
+lengths around its tile and at the flagship's 2.9M slots, and the rank and
+fixpoint replays of a real merge window on the card to the CPU's.
 """
 
 import dataclasses
@@ -35,10 +39,13 @@ from hyptokenizer_tpu_torch.ops.cuda import _build
 from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
 from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
 from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
 from hyptokenizer_tpu_torch.tokenizer import (
-    EnhancedHyperbolicTokenizer, HyperbolicTokenizer)
+    WORDS_WITH_SPACE, EnhancedHyperbolicTokenizer, HyperbolicTokenizer)
 from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+from hyptokenizer_tpu_torch.tokenizer import scoring as SC
 from hyptokenizer_tpu_torch.tokenizer import state as S
+from hyptokenizer_tpu_torch.utils import data, metrics
 from tests.torch_port_checks import assert_same_best
 
 pytestmark = pytest.mark.cuda
@@ -123,6 +130,7 @@ def test_kernel_builds(cuda):
     assert _build.load(K1.SOURCE).enhanced_loop_dense_launch is not None
     assert _build.load(K3.SOURCE).pairwise_min_best_launch is not None
     assert _build.load(K4.SOURCE).merge_loop_launch is not None
+    assert _build.load(RS.SOURCE).replay_select_round_launch is not None
 
 
 @pytest.mark.parametrize("kw", [
@@ -663,3 +671,127 @@ def test_train_embeddings_on_the_card_matches_cpu(cuda):
     assert e_gpu.device.type == "cuda"
     torch.testing.assert_close(e_gpu.cpu(), e_cpu, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------ replay selection
+
+SELECT_N = [0, 1, RS.TILE - 1, RS.TILE, RS.TILE + 1, 2_900_000]
+SELECT_KINDS = ["all_true", "all_false", "edges", "0.1", "0.5", "0.9"]
+WIKI_SLOTS = 200_000
+WIKI_ROUNDS = 6          # pair-table rounds that make the merge window
+WIKI_PER_ROUND = 64
+
+
+def select_mask(kind, n, seed):
+    """A mask of ``kind``: constant, random at a density, or ``edges``:
+    random at 0.3 with a run of True across every tile edge."""
+    rng = np.random.default_rng(seed)
+    if kind in ("all_true", "all_false"):
+        return np.full(n, kind == "all_true")
+    m = rng.random(n) < (0.3 if kind == "edges" else float(kind))
+    if kind == "edges":
+        for e in range(RS.TILE, n, RS.TILE):
+            m[max(e - int(rng.integers(1, 40)), 0):
+              e + int(rng.integers(1, 40))] = True
+    return m
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("n", SELECT_N)
+def test_replay_select_take_matches_plain(cuda, n, kind):
+    m = torch.from_numpy(select_mask(kind, n, n))
+    RS.reset_launches()
+    got = RS.parity_take(m.to(cuda))
+    assert RS.launches == 1
+    want = SC.parity_take_plain(m)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(SC._parity_take(m.to(cuda)).cpu(), want)
+    assert RS.launches == 2
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+@pytest.mark.parametrize("n", SELECT_N)
+def test_replay_select_round_matches_plain(cuda, n, kind):
+    rng = np.random.default_rng(n + 1)
+    alive = torch.from_numpy(select_mask(kind, n, n + 2))
+    # Few ranks, so that neighbours tie often; one rank at 2^31 - 1, the
+    # value of an entry that is not alive.
+    pri = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))
+    if n:
+        pri[n // 2] = 2**31 - 1
+    sel = torch.from_numpy(rng.random(n) < 0.1)
+    sel_card = sel.to(cuda)
+    RS.reset_launches()
+    alive_card, flag = RS.matching_round(alive.to(cuda), pri.to(cuda),
+                                         sel_card)
+    assert RS.launches == 1
+    want_alive, want_live = SC.matching_round_plain(alive, pri, sel)
+    assert torch.equal(alive_card.cpu(), want_alive)
+    assert torch.equal(sel_card.cpu(), sel)
+    assert int(flag) == int(want_live)
+
+
+def test_replay_select_refuses_bad_tensors(cuda):
+    m = torch.ones(100, dtype=torch.bool, device=cuda)
+    pri = torch.zeros(100, dtype=torch.int32, device=cuda)
+    for bad in (m.cpu(), m[::2], m[1:], m.int(), m.reshape(10, 10)):
+        with pytest.raises(ValueError):
+            RS.parity_take(bad)
+    sel = torch.zeros_like(m)
+    for args in ((m.cpu(), pri.cpu(), sel.cpu()), (m, pri[:50], sel),
+                 (m, pri.long(), sel), (m, pri, sel[::2])):
+        with pytest.raises(ValueError):
+            RS.matching_round(*args)
+
+
+@pytest.fixture(scope="module")
+def wiki_window():
+    """The first WIKI_SLOTS slots of the frozen wiki corpus, and a merge
+    window made as training makes one: rounds of the most frequent pairs
+    of the replayed corpus, so that later rules take ids made earlier."""
+    from hyptokenizer_tpu_torch import bench
+    lines = bench.load_corpus()
+    vocab = ["<pad>", "<bos>", "<eos>", "<unk>"] + sorted(
+        {ch for ln in lines for ch in ln})
+    corpus = torch.from_numpy(data.encode_corpus_chars(
+        lines, vocab, WIKI_SLOTS, unk_id=3, sep_id=SC.SEP_ID,
+        pad_id=SC.PAD_ID, pre_split=WORDS_WITH_SPACE))
+    n_init = len(vocab)
+    merges = torch.full((WIKI_ROUNDS * WIKI_PER_ROUND, 2), -1,
+                        dtype=torch.int32)
+    c = corpus
+    for r in range(WIKI_ROUNDS):
+        keys, counts, _, _ = SC.build_pair_table(c, 1 << 16)
+        top = torch.topk(counts, WIKI_PER_ROUND).indices
+        at = r * WIKI_PER_ROUND
+        merges[at:at + WIKI_PER_ROUND] = keys[top]
+        c = SC.batch_rank_replay(c, merges, at, WIKI_PER_ROUND, n_init)
+    return corpus, merges, n_init
+
+
+@pytest.mark.parametrize("policy", ["rank", "fixpoint"])
+def test_replay_on_wiki_corpus_matches_cpu(cuda, wiki_window, policy):
+    """The replay of a real window on the card equals the CPU's plain one
+    exactly, in two syncs as training replays it; every selection went
+    through the kernel (``replay.select_launches`` equals
+    ``replay.match_rounds`` under a profiler)."""
+    replay = (SC.batch_rank_replay if policy == "rank"
+              else SC.batch_fixpoint_replay)
+    corpus, merges, n_init = wiki_window
+    half = merges.shape[0] // 2
+    want = corpus
+    got = corpus.to(cuda)
+    RS.reset_launches()
+    metrics.tracing()   # a look with none recording: a record of its own
+    with torch.profiler.profile():
+        for start in (0, half):
+            want = replay(want, merges, start, half, n_init)
+            got = replay(got, merges.to(cuda), start, half, n_init)
+        torch.cuda.synchronize()
+    counters = metrics.trace_snapshot()["counters"]
+    assert torch.equal(got.cpu(), want)
+    assert int((want >= n_init).sum()) > 1000   # the rules did apply
+    assert RS.launches > 0
+    # The counters add the CPU replay's rounds too, which launch nothing.
+    assert counters["replay.select_launches"] == RS.launches
+    assert counters["replay.match_rounds"] == 2 * RS.launches

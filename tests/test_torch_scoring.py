@@ -196,3 +196,96 @@ def test_compact_and_count():
        JS.compact_corpus(jnp.asarray(corpus)))
     assert int(TS.corpus_token_count(torch.from_numpy(corpus))) == int(
         JS.corpus_token_count(jnp.asarray(corpus)))
+
+
+# The replay's selection, held to sequential oracles: the recurrence that
+# the card's kernel (ops/cuda/csrc/replay_select.cu) implements, and the
+# rank-order greedy matching that its rounds add up to.
+
+SELECT_LENGTHS = [0, 1, 2, 33, 4097]
+SELECT_DENSITIES = [0.0, 0.1, 0.5, 0.9, 1.0]
+
+
+def select_mask(n, density, seed):
+    return np.random.default_rng(seed).random(n) < density
+
+
+def take_oracle(cand):
+    take, prev = [], False
+    for c in cand:
+        prev = bool(c) and not prev
+        take.append(prev)
+    return np.array(take, bool)
+
+
+def round_oracle(alive, pri):
+    """One matching round, entry by entry."""
+    n = len(alive)
+    big = 2**31 - 1
+    p = [int(pri[i]) if alive[i] else big for i in range(n)]
+    cand = [bool(alive[i]) and p[i] <= (p[i - 1] if i else big)
+            and p[i] <= (p[i + 1] if i + 1 < n else big) for i in range(n)]
+    take = take_oracle(cand)
+    near = [take[i] or (i > 0 and take[i - 1]) or (i + 1 < n and take[i + 1])
+            for i in range(n)]
+    return take, np.array([bool(alive[i]) and not near[i] for i in range(n)],
+                          bool)
+
+
+def greedy_matching(m, pri):
+    """Matches taken in (rank, position) order, each unless a neighbour
+    was taken before it: each rule applied fully, left to right, in rank
+    order. The rounds equal it where neighbouring matches differ in rank.
+    Equal neighbouring ranks are one rule (x, x) over a run of x, and
+    there the rounds, like the JAX package's, may start the run's parity
+    late: on "a b a a a" with ranks (a, b) < (b, a) < (a, a), round one
+    takes (a, b) and the last (a, a), where rank order takes the first."""
+    n = len(m)
+    sel = np.zeros(n, bool)
+    for i in sorted(np.flatnonzero(m), key=lambda i: (int(pri[i]), i)):
+        if not (i > 0 and sel[i - 1]) and not (i + 1 < n and sel[i + 1]):
+            sel[i] = True
+    return sel
+
+
+@pytest.mark.parametrize("density", SELECT_DENSITIES)
+@pytest.mark.parametrize("n", SELECT_LENGTHS)
+def test_parity_take_matches_recurrence(n, density):
+    m = select_mask(n, density, seed=n)
+    got = TS._parity_take(torch.from_numpy(m))
+    np.testing.assert_array_equal(got.numpy(), take_oracle(m))
+
+
+@pytest.mark.parametrize("runs", [False, True])
+@pytest.mark.parametrize("density", SELECT_DENSITIES)
+@pytest.mark.parametrize("n", SELECT_LENGTHS)
+def test_matching_rounds_match_oracles(n, density, runs):
+    rng = np.random.default_rng(1000 + n)
+    # The pairs of n + 1 tokens from 4 symbols, a share ``density`` of the
+    # 16 pairs being rules of distinct ranks, as the replay sees a window's
+    # matches. ``runs`` keeps runs of one token ("aaaa", neighbours of
+    # equal rank), held to the rounds' oracle alone; without them the
+    # rounds add up to the rank-order greedy matching too.
+    if runs:
+        toks = rng.integers(0, 4, n + 1)
+    else:
+        toks = np.cumsum(rng.integers(1, 4, n + 1)) % 4
+    rank = rng.permutation(16).reshape(4, 4)
+    is_rule = rng.random((4, 4)) < density
+    m = is_rule[toks[:-1], toks[1:]]
+    pri = np.where(m, rank[toks[:-1], toks[1:]], -1).astype(np.int32)
+    tp = torch.from_numpy(pri)
+    alive = torch.from_numpy(m)
+    sel = torch.zeros_like(alive)
+    want_sel = np.zeros(n, bool)
+    while bool(alive.any()):
+        take, want_alive = round_oracle(alive.numpy(), pri)
+        want_sel |= take
+        alive, live = TS.matching_round_plain(alive, tp, sel)
+        np.testing.assert_array_equal(sel.numpy(), want_sel)
+        np.testing.assert_array_equal(alive.numpy(), want_alive)
+        assert bool(live) == bool(want_alive.any())
+    if not runs:
+        np.testing.assert_array_equal(want_sel, greedy_matching(m, pri))
+    np.testing.assert_array_equal(
+        TS._select_matching(torch.from_numpy(m), tp).numpy(), want_sel)
