@@ -190,6 +190,8 @@ struct Params {
   int* part_i;           // (grid,) its row
   int* event;            // (E_COUNT,) block 0's last event, zeroed
   unsigned* done;        // (1,) events the other blocks finished, zeroed
+  int* counts;           // (2,) K2's dense merges and empty-round
+                         // threshold growths, or null
 };
 
 // Coefficients of the length-weighted geodesic point of rows ci and cj
@@ -1030,6 +1032,14 @@ dense_loop_kernel(Params p) {
       }
       s_need_rs = need_rs;
       s_n_apply = need_rs ? 0 : max(0, min(n, p.max_v - s_i[S_VOCAB]));
+      if (p.counts != nullptr && !need_rs) {
+        if (dvalid && at < s_n_apply) ++p.counts[0];
+        // step_scalars grows the threshold after this empty round.
+        if (s_n_apply == 0 && p.adaptive &&
+            s_i[S_EMPTY] + 1 >= p.empty_after) {
+          ++p.counts[1];
+        }
+      }
     }
     __syncthreads();
 
@@ -1601,7 +1611,9 @@ extern "C" int enhanced_loop_dense_grid(int nb) {
 // lexicographically sorted table) and the score weights, then the
 // cooperative grid's size (enhanced_loop_dense_grid) and scratch: the
 // partials (grid floats, grid ints), block 0's event (E_COUNT ints,
-// zeroed) and the count of finished events (1, zeroed).
+// zeroed), the count of finished events (1, zeroed) and the counts that
+// block 0 adds each dense merge and each empty-round threshold growth to
+// (2 ints, or null for none).
 extern "C" int enhanced_loop_dense_launch(
     void* emb, void* lengths, void* byte_lengths, void* has_vowel,
     void* token_hash, void* merges, void* merge_dists, void* q_i, void* q_j,
@@ -1615,7 +1627,7 @@ extern "C" int enhanced_loop_dense_launch(
     int use_freq, int use_comp, int max_token_len, int n_buckets,
     float w_alpha, float w_beta, float w_gamma, float w_comp, float w_morph,
     int grid, void* part_v, void* part_i, void* event, void* done,
-    void* stream) {
+    void* counts, void* stream) {
   if (nb < 1 || nb > kMaxBatch || table_size < 1 || morph_len < 1 ||
       word_len < 1 || grid < 1 ||
       (n_buckets > 1 && table_size % n_buckets != 0)) {
@@ -1651,6 +1663,7 @@ extern "C" int enhanced_loop_dense_launch(
   p.part_i = static_cast<int*>(part_i);
   p.event = static_cast<int*>(event);
   p.done = static_cast<unsigned*>(done);
+  p.counts = static_cast<int*>(counts);
   cudaError_t err = allow_batch(nb);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};

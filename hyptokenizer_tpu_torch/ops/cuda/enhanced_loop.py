@@ -101,7 +101,7 @@ def _launcher(dense: bool):
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         args = [ptr] * 14 + [i] * 9 + [f] * 3 + [i, i, f, i, f, i]
         if dense:
-            args += [ptr] * 7 + [i] * 9 + [f] * 5 + [i] + [ptr] * 4
+            args += [ptr] * 7 + [i] * 9 + [f] * 5 + [i] + [ptr] * 5
         else:
             args += [i, i]                   # resident phase queues, ring
         fn.argtypes = args + [ptr]
@@ -186,16 +186,19 @@ def _check_cuda_state(st, config) -> None:
 
 
 def run_segment_cuda(st, config, m_budget: int, s_budget: int,
-                     curv_stop: int, n_steps: int = SEGMENT_STEPS):
+                     curv_stop: int, n_steps: int = SEGMENT_STEPS,
+                     counts=None):
     """One launch of the configuration's kernel (K1, or K2 with the dense
-    channel): up to ``n_steps`` steps, in place (span ``segment.launch``)."""
+    channel): up to ``n_steps`` steps, in place (span ``segment.launch``).
+    ``counts``, two int32s on the card or None: K2 adds its dense merges
+    and its empty-round threshold growths to them (K1 counts nothing)."""
     with metrics.span("segment.launch"):
         return _launch_segment(st, config, m_budget, s_budget, curv_stop,
-                               n_steps)
+                               n_steps, counts)
 
 
 def _launch_segment(st, config, m_budget: int, s_budget: int,
-                    curv_stop: int, n_steps: int):
+                    curv_stop: int, n_steps: int, counts=None):
     global launches, dense_launches
     _check_cuda_state(st, config)
     dense = uses_dense(config)
@@ -232,7 +235,8 @@ def _launch_segment(st, config, m_budget: int, s_budget: int,
         # Block 0's event (4 ints) and the count of finished events.
         sync = torch.zeros((5,), dtype=torch.int32, device=dev)
         extra += [g, part_v.data_ptr(), part_i.data_ptr(), sync.data_ptr(),
-                  sync[4:].data_ptr()]
+                  sync[4:].data_ptr(),
+                  None if counts is None else counts.data_ptr()]
     rc = _launcher(dense)(
         base.emb.data_ptr(), base.lengths.data_ptr(),
         st.byte_lengths.data_ptr(), st.has_vowel.data_ptr(),
@@ -262,15 +266,17 @@ def _launch_segment(st, config, m_budget: int, s_budget: int,
 
 
 def run_segment(st, config, m_budget: int, s_budget: int, curv_stop: int,
-                sampler, n_steps: int = SEGMENT_STEPS, plain: bool = False):
+                sampler, n_steps: int = SEGMENT_STEPS, plain: bool = False,
+                counts=None):
     """A segment on the state's own device: kernel K1 or K2 on the card,
     their plain version on the CPU, or everywhere when ``plain`` is asked
-    for (the oracle of ``evals/selfcheck.py``)."""
+    for (the oracle of ``evals/selfcheck.py``). ``counts``: the kernel's
+    (:func:`run_segment_cuda`); the plain version counts its own."""
     if plain or st.base.emb.device.type == "cpu":
         return run_segment_plain(st, config, m_budget, s_budget, curv_stop,
                                  sampler, n_steps)
     return run_segment_cuda(st, config, m_budget, s_budget, curv_stop,
-                            n_steps)
+                            n_steps, counts=counts)
 
 
 def _segment_end(sc: dict, m_budget: int, s_budget: int,
@@ -296,7 +302,9 @@ def run_chunk(st, config, n_steps: int, sampler,
     ``parallel/sharded.py``, same arguments). Spans: ``sync`` (the sync and
     the scalars' read that waits for it), ``segment.wait`` (the scalars'
     read after each segment); counters ``segment.end.<reason>``
-    (:func:`_segment_end`)."""
+    (:func:`_segment_end`) and, while tracing, K2's ``merge.dense`` and
+    ``threshold.empty_growth`` (the plain version counts its own in
+    ``enhanced_step``; K1 counts neither)."""
     with metrics.span("sync"):
         st = (sync or E.sync_corpus)(st, config, sampler)
         sc = E.state_scalars(st)
@@ -308,13 +316,23 @@ def run_chunk(st, config, n_steps: int, sampler,
             st = E._maybe_update_curvature(st, config, sampler)
         curv_stop = ((int(st.curv_last) // freq + 1) * freq if freq > 0
                      else NO_CURVATURE_STOP)
+        tracing = metrics.tracing()
+        counts = None
+        if tracing and uses_dense(config) and not plain and \
+                st.base.emb.device.type == "cuda":
+            counts = torch.zeros((2,), dtype=torch.int32,
+                                 device=st.base.emb.device)
         st = run_segment(st, config, m_budget, s_budget, curv_stop, sampler,
-                         segment_steps, plain)
+                         segment_steps, plain, counts=counts)
         with metrics.span("segment.wait"):
             now = E.state_scalars(st)
-        if metrics.tracing():
+        if tracing:
             metrics.count("segment.end." + _segment_end(
                 now, m_budget, s_budget, curv_stop))
+            if counts is not None:
+                dense_merges, growths = counts.tolist()
+                metrics.count("merge.dense", dense_merges)
+                metrics.count("threshold.empty_growth", growths)
         if now["step"] == sc["step"] and not (now["stopped"]
                                               or now["needs_resync"]):
             raise RuntimeError(

@@ -537,6 +537,8 @@ def enhanced_step(st: EnhancedState, config: EnhancedConfig,
             dd_b = torch.cat([dd_b[:p], dd[None], dd_b[p:]])
         n_apply = min(ii.shape[0],
                       config.base.max_vocab_size - int(base.vocab_size))
+        if dense_valid and p < n_apply and metrics.tracing():
+            metrics.count("merge.dense")
         if n_apply > 0:
             ii, jj, dd_b = ii[:n_apply], jj[:n_apply], dd_b[:n_apply]
             slot = base.vocab_size.long() + torch.arange(n_apply, device=dev)
@@ -556,6 +558,8 @@ def enhanced_step(st: EnhancedState, config: EnhancedConfig,
             empty = base.empty_rounds + 1
             if config.base.adaptive_threshold:
                 grow = empty >= config.base.empty_growth_after
+                if metrics.tracing() and bool(grow):
+                    metrics.count("threshold.empty_growth")
                 threshold = torch.clamp_max(torch.where(
                     grow, base.threshold * config.base.empty_growth,
                     base.threshold), THRESHOLD_CAP)
@@ -692,7 +696,9 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
     state on the CPU (``ops/cuda/enhanced_loop.run_chunk``). ``sync``
     replaces :func:`sync_corpus` (the sharded syncs,
     ``parallel/sharded.py``). Counters: ``sync.opening`` for the first
-    sync, ``sync.resync.<reason>`` for each resync (:func:`_resync_reason`).
+    sync, ``sync.resync.<reason>`` for each resync (:func:`_resync_reason`),
+    and ``sync.phase<n>`` for each sync by the phase of its merge count
+    (:func:`_phase_index`).
     """
     if (config.use_dense_channel or not config.needs_corpus) and \
             bool(st.base.best_dist[0] == -INF):
@@ -709,6 +715,7 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
         if metrics.tracing():
             metrics.count(_resync_reason(st, config, before) if rounds
                           else "sync.opening")
+            metrics.count(f"sync.phase{_phase_index(config, before) + 1}")
         st = enhanced_loop.run_chunk(st, config, remaining, sampler,
                                      sync=sync)
         rounds += 1
@@ -728,12 +735,18 @@ def _resync_reason(st: EnhancedState, config: EnhancedConfig,
     the current phase's queue held the top ``queue_size`` of more valid
     pairs, else ``spent``. One read of the device and no kernel: the phase
     is the merge count's, as ``enhanced_step`` sets it."""
-    pidx = 0
-    if config.use_hierarchical:
-        pidx = ((num_merges >= config.phase2_step)
-                + (num_merges >= config.phase3_step))
+    pidx = _phase_index(config, num_merges)
     truncated = int(st.q_valid_total[pidx]) > config.queue_size
     return f"sync.resync.{'truncated' if truncated else 'spent'}"
+
+
+def _phase_index(config: EnhancedConfig, num_merges: int) -> int:
+    """The phase (0-2) of a step at ``num_merges`` merges, as
+    ``enhanced_step`` sets it; 0 without the curriculum."""
+    if not config.use_hierarchical:
+        return 0
+    return (int(num_merges >= config.phase2_step)
+            + int(num_merges >= config.phase3_step))
 
 
 def state_scalars(st: EnhancedState) -> dict:
