@@ -33,7 +33,10 @@ Phases:
    state (merge history exact, rows within ``ROW_ATOL``), and its step
    floor (a segment in which no step merges); the replay's selection
    (``replay_select``) over the flagship's 2.9M corpus slots, exactly,
-   timed beside its plain versions and ``torch.cummax``; K2 by lockstep
+   timed beside its plain versions and ``torch.cummax``; the sync's
+   scoring (``sync_score``) on the trained flagship's pair table (masks
+   exact, scores within ``evals/selfcheck.score_tolerance``), timed
+   beside its plain version; K2 by lockstep
    with oracle resync, step by step over 4 segments from the all-features
    state (``evals/selfcheck._lockstep_steps``: merges as the JAX protocol
    compares them, rows within ``ROW_ATOL`` plus their float32 conditioning,
@@ -221,6 +224,7 @@ def main_path(lines, device="cuda"):
     from hyptokenizer_tpu_torch import bench
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
     from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
+    from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
     from hyptokenizer_tpu_torch.tokenizer import (
         WORDS_WITH_SPACE, EnhancedHyperbolicTokenizer, NormalizerConfig)
 
@@ -238,12 +242,14 @@ def main_path(lines, device="cuda"):
 
     K1.reset_launches()
     RS.reset_launches()
+    S1.reset_launches()
     t0 = time.perf_counter()
     tok.optimize_merges(steps=TRAIN_STEPS, log_every=LOG_EVERY)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"enhanced_loop": K1.launches, "replay_select": RS.launches}
+    launches = {"enhanced_loop": K1.launches, "replay_select": RS.launches,
+                "sync_score": S1.launches}
 
     merges = len(tok.merge_history)
     if merges < TRAIN_STEPS or merges != int(tok.state.num_merges):
@@ -313,6 +319,7 @@ def main_path_all(lines, device="cuda"):
     from hyptokenizer_tpu_torch import bench
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
     from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+    from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
     from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
     from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 
@@ -325,6 +332,7 @@ def main_path_all(lines, device="cuda"):
 
     K12.reset_launches()
     K3.reset_launches()
+    S1.reset_launches()
     t0 = time.perf_counter()
     tok = EnhancedHyperbolicTokenizer(
         vocab, emb, device=dev, corpus_sample=lines, **bench.ALLFEATURES)
@@ -360,7 +368,8 @@ def main_path_all(lines, device="cuda"):
         fail(f"training after load made {n_after} merges (expected "
              f"{ALL_AFTER_LOAD}) or non-finite rows")
     launches = {"enhanced_loop_dense": K12.dense_launches,
-                "pairwise_min_best": K3.launches}
+                "pairwise_min_best": K3.launches,
+                "sync_score": S1.launches}
     return tok, start, dict(
         ctor_s=ctor_s, train_s=train_s, merges=merges,
         merges_per_s=merges / train_s, phase=tok.current_phase,
@@ -883,6 +892,77 @@ def check_replay_select(tok, lines):
         plain_take_ms=plain_take_ms, library_ms=library_ms,
         bound_ms=8 * n / H100_BYTES_PER_S * 1e3,
         bound_take_ms=2 * n / H100_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def check_sync_score(tok):
+    """The sync's scoring kernel S1 against its plain version on the
+    trained flagship's last pair table (its rows, samples and curvature):
+    candidate masks exact, distances and scores within
+    ``evals/selfcheck.score_tolerance``, the queue's top ``queue_size``
+    within ``compare_queues``. Then timed with CUDA events (the wrapper's
+    host side included) and by the profiler's kernel time, beside the
+    plain version and the bound: the gram's multiply-adds of the valid rows
+    at the fp32 rate, or each input byte read once (the table, the
+    embedding rows it names, the samples) and each output written once."""
+    from hyptokenizer_tpu_torch.evals import selfcheck
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+    from hyptokenizer_tpu_torch.tokenizer import scoring as SC
+
+    cfg = tok.enh_config
+    inputs = selfcheck.state_score_inputs(tok.enh_state)
+    got = E.score_candidates(cfg, **inputs)
+    want = E.score_candidates_plain(cfg, **inputs)
+    tol = selfcheck.score_tolerance(cfg, inputs)
+    cmp = selfcheck.compare_scores(got, want, tol, inputs["curvature"])
+    if not cmp["masks_equal"] or cmp["score_gap_over_tol"] > 1.0 or \
+            cmp["dist_gap_over_tol"] > 1.0:
+        fail(f"sync_score differs from the plain version: {cmp}")
+    keys = inputs["keys"]
+    queues = [SC.top_k_desc(sc, cfg.queue_size) for sc in (got[0], want[0])]
+    qcmp = selfcheck.compare_queues(
+        *[(keys[p, 0], keys[p, 1], v) for v, p in queues], keys, tol[1])
+    if not qcmp["ok"]:
+        fail(f"sync_score's queue differs from the plain version's: {qcmp}")
+
+    def launch():
+        return E.score_candidates(cfg, **inputs)
+
+    ms = event_ms(launch, reps=50)
+    plain_ms = event_ms(lambda: E.score_candidates_plain(cfg, **inputs),
+                        reps=5)
+    reps = 20
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    kernel_us = sum(e.device_time_total for e in prof.key_averages()
+                    if "sync_score_kernel" in e.key)
+    t, d1 = keys.shape[0], inputs["emb"].shape[1]
+    valid = keys[:, 0] != SC.PKEY_SENT
+    n_valid = int(valid.sum())
+    samples = inputs["coh_samples"]
+    rows = torch.unique(torch.cat([keys[valid].flatten(), samples.int()]))
+    n_phases = got[0].shape[0]
+    nbytes = (12 * t + 4 * samples.numel() + 4 * d1 * rows.numel()
+              + 4 * t * (1 + n_phases))
+    ops = n_valid * 2 * d1 * (1 + samples.numel())
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return dict(
+        name="sync_score", route="cuda",
+        source="hyptokenizer_tpu_torch/ops/cuda/csrc/sync_score.cu",
+        replaces="hyptokenizer_tpu/tokenizer/enhanced_state.py "
+                 "_sync_finish's scoring (XLA ops, no pallas_call)",
+        checked=True, rows=t, candidates=cmp["candidates"],
+        samples=samples.numel(), d1=d1,
+        score_gap=cmp["score_max_gap"],
+        score_gap_over_tol=cmp["score_gap_over_tol"],
+        dist_gap_over_tol=cmp["dist_gap_over_tol"],
+        queue_differ=qcmp["differ"], ms=ms,
+        kernel_ms=kernel_us / reps / 1e3, plain_ms=plain_ms,
+        library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms > ops_ms else "operations")
 
 
 def k1_floor_state(st0, cfg):
@@ -2177,6 +2257,15 @@ def main() -> None:
           f"{rs['plain_ms']:.3f} / {rs['plain_take_ms']:.3f} ms; "
           f"torch.cummax alone {rs['library_ms']:.3f} ms; launches on the "
           f"main path {rs['launches']}", flush=True)
+    s1 = check_sync_score(tok)
+    s1["launches"] = main["launches"]["sync_score"]
+    print(f"sync_score on the trained table ({s1['rows']} rows, "
+          f"{s1['candidates']} candidates, {s1['samples']} samples): "
+          f"{s1['ms']:.4f} ms a call, kernel {s1['kernel_ms']:.4f} ms on the "
+          f"card; bound {s1['bound_ms']:.4f} ms ({s1['bound_by']}); plain "
+          f"{s1['plain_ms']:.3f} ms; score gap {s1['score_gap']:.3g} "
+          f"({s1['score_gap_over_tol']:.3g} of its tolerance); launches on "
+          f"the main path {s1['launches']}", flush=True)
     del tok
 
     tok, start, alls = main_path_all(lines)
@@ -2195,6 +2284,7 @@ def main() -> None:
 
     k2 = check_k2(tok, start)
     k2["launches"] = alls["launches"]["enhanced_loop_dense"]
+    s1["launches_all_features"] = alls["launches"]["sync_score"]
     print(f"K2 lockstep: {k2['lockstep']} over {k2['lockstep_merges']} "
           f"merges in {k2['lockstep_steps']} steps, reorders "
           f"{k2['reorders']} dist_ties {k2['dist_ties']} partner_ties "
@@ -2372,7 +2462,7 @@ def main() -> None:
         "gloo_world_two": par["gloo_all_reduce_us"]}}), flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, rs]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, rs, s1]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

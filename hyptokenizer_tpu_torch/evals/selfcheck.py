@@ -663,16 +663,367 @@ def _check_enhanced_full_features(out: Dict, device="cuda") -> None:
     _lockstep_enhanced(tok, 4, 8, out, "enhanced_full_selfcheck")
 
 
+# ------------------------------------------- the sync's scoring (kernel S1)
+
+# The flagship's table (freq_table_size, d = 100, 50 coherence samples, the
+# 50,176-slot vocabulary), and a small one for a check on the CPU, where
+# both sides are the plain version.
+SCORE_TABLE = dict(n_vocab=50_176, d=100, table_size=1 << 17,
+                   n_pairs=100_000, n_samples=50)
+SCORE_TABLE_SMALL = dict(n_vocab=512, d=16, table_size=2048, n_pairs=1500,
+                         n_samples=50)
+ACOSH_1ULP = float(np.arccosh(1.0 + 2.0 ** -23))  # least float32 distance > 0
+
+
+def score_table_inputs(device, n_vocab: int, d: int, table_size: int,
+                       n_pairs: int, n_samples: int, seed: int = 5,
+                       sigma: float = 0.5, curvature: float = 1.3,
+                       threshold: float = 0.1) -> Dict:
+    """The keyword arguments of ``enhanced_state.score_candidates`` for a
+    synthetic sync: ``n_vocab`` points at ``sigma`` (d + 1 coordinates, on
+    the sheet of ``curvature``), lengths 1-8, and a lexicographically
+    sorted table of ``n_pairs`` distinct pairs in ``table_size`` rows
+    (sentinel padded; one pair in a hundred a self pair (a, a)), with
+    heavy-tailed counts; morphology and word tables that hold the composed
+    hashes of some of the pairs (``HKEY_SENT`` padded past their sizes);
+    ``n_samples`` coherence samples, half of them ids of the table's pairs.
+    Drawn on the CPU from a generator seeded with ``seed``, then moved to
+    ``device``, so that every device gets the same inputs."""
+    import torch
+
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.tokenizer import scoring
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+
+    def ints(low, high, shape):
+        return torch.randint(low, high, shape, generator=gen,
+                             dtype=torch.int32)
+
+    emb = L.random_points(gen, n_vocab, d, c=curvature, sigma=sigma,
+                          device="cpu")
+    lengths = ints(1, 9, (n_vocab,))
+    byte_lengths = lengths + ints(0, 2, (n_vocab,))
+    has_vowel = torch.rand((n_vocab,), generator=gen) < 0.5
+    token_hash = torch.stack([ints(0, scoring.HASH_P1, (n_vocab,)),
+                              ints(0, scoring.HASH_P2, (n_vocab,))], dim=-1)
+    hi = ints(0, n_vocab, (2 * n_pairs,)).long()
+    lo = ints(0, n_vocab, (2 * n_pairs,)).long()
+    lo = torch.where(torch.rand((2 * n_pairs,), generator=gen) < 0.01, hi,
+                     lo)
+    pk = torch.unique(hi * n_vocab + lo)
+    pk = pk[torch.randperm(pk.numel(), generator=gen)[:n_pairs]]
+    pk = torch.sort(pk).values
+    n_real = pk.numel()
+    keys = torch.full((table_size, 2), scoring.PKEY_SENT, dtype=torch.int32)
+    keys[:n_real, 0] = (pk // n_vocab).int()
+    keys[:n_real, 1] = (pk % n_vocab).int()
+    counts = torch.zeros((table_size,), dtype=torch.int32)
+    heavy = torch.rand((n_real,), generator=gen).clamp_min(1e-6) ** -1.5
+    counts[:n_real] = heavy.clamp_max(1e6).int()
+    powers = scoring.hash_powers()
+    rows, cols = keys[:n_real, 0].long(), keys[:n_real, 1].long()
+    merged = scoring.compose_hash(token_hash[rows], token_hash[cols],
+                                  byte_lengths[cols], powers)
+    composed = scoring.pack_hash(merged[:, 0], merged[:, 1])
+
+    def table(share):
+        hits = composed[torch.rand((n_real,), generator=gen) < share]
+        other = ints(0, 2**31 - 1, (max(n_real // 10, 1),))
+        keys_ = torch.unique(torch.cat([hits, other]))
+        pad = torch.full((keys_.numel() // 4 + 1,), scoring.HKEY_SENT,
+                         dtype=torch.int32)
+        return torch.cat([keys_, pad]), keys_.numel()
+
+    morph_table, morph_size = table(0.2)
+    word_table, word_size = table(0.3)
+    n_hit = n_samples // 2
+    samples = torch.cat([
+        keys[ints(0, max(n_real, 1), (n_hit,)).long(),
+             ints(0, 2, (n_hit,)).long()],
+        ints(0, n_vocab, (n_samples - n_hit,))])
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype)
+
+    out = dict(
+        emb=emb, lengths=lengths, threshold=scalar(threshold, torch.float32),
+        curvature=scalar(curvature, torch.float32), coh_samples=samples,
+        max_pair_count=counts.max(),
+        corpus_tokens=scalar(2_900_000, torch.int32), token_hash=token_hash,
+        byte_lengths=byte_lengths, has_vowel=has_vowel, hash_powers=powers,
+        morph_table=morph_table, morph_size=scalar(morph_size, torch.int32),
+        word_table=word_table, word_size=scalar(word_size, torch.int32),
+        keys=keys, counts=counts)
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def state_score_inputs(st) -> Dict:
+    """The keyword arguments of ``enhanced_state.score_candidates`` that
+    score the pair table of the synced enhanced state ``st``."""
+    base = st.base
+    return dict(
+        emb=base.emb, lengths=base.lengths, threshold=base.threshold,
+        curvature=base.curvature, coh_samples=st.coh_samples,
+        max_pair_count=st.max_pair_count, corpus_tokens=st.corpus_tokens,
+        token_hash=st.token_hash, byte_lengths=st.byte_lengths,
+        has_vowel=st.has_vowel, hash_powers=st.hash_powers,
+        morph_table=st.morph_table, morph_size=st.morph_size,
+        word_table=st.word_table, word_size=st.word_size,
+        keys=st.pair_keys, counts=st.pair_counts)
+
+
+def score_tolerance(config, inputs: Dict):
+    """How far two float32 evaluations of ``score_candidates`` on
+    ``inputs`` may lie apart, per table row, in float64: (gram_tol (T,),
+    score_tol (T,)).
+
+    ``gram_tol`` bounds the gap of the two distances mapped back to the
+    gram, |cosh(sqrt(c) d1) - cosh(sqrt(c) d2)|: the pair's Minkowski dot
+    summed in two orders (:func:`gram_error_bound`) plus the log-form
+    acosh's and the division's rounding (16 ulp of the distance, carried
+    to the gram by its slope). Distances themselves cannot be held to a
+    fixed tolerance: near the acosh's floor one ulp of the gram moves a
+    distance by about 5e-4, and a self pair (a, a) far from the origin
+    reads anywhere in [0, acosh(1 + gram_tol)].
+
+    ``score_tol`` adds up the terms' own spreads, each weighted as the
+    configuration weights it: the distance score over the distance's
+    interval (``1 / (1 + d)`` is 1-Lipschitz); 8 ulp of the frequency term
+    (``log1p`` on two libraries); and the coherence's sigmoid (slope at
+    most 1/4) over the spread of the average distance to the samples. A
+    sample's distance spreads by the acosh of its gram's interval: the
+    midpoint's gram against the sample at the ends and the middle of the
+    pair's distance interval, plus the gram's summation bound and the
+    midpoint's coordinate rounding, which the float32 coefficients
+    ``1 - exp(-2t)`` make large for a short geodesic (as
+    :func:`_geodesic_eval_error`; a path's distance is 0 or at least
+    ``ACOSH_1ULP``). The weighted sum's own rounding adds 24 ulp. A real
+    fault (a wrong term, sample or weight) moves a score by far more."""
+    import torch
+
+    from hyptokenizer_tpu_torch.tokenizer import scoring
+
+    u = U32
+    keys, emb = inputs["keys"], inputs["emb"]
+    valid = keys[:, 0] != scoring.PKEY_SENT
+    rows = torch.where(valid, keys[:, 0], 0).long()
+    cols = torch.where(valid, keys[:, 1], 0).long()
+    d1 = emb.shape[1]
+    x, y = emb[rows].double(), emb[cols].double()
+    sig = torch.ones(d1, dtype=torch.float64, device=emb.device)
+    sig[1:] = -1.0
+    g = (x * sig * y).sum(-1)
+    sc = torch.sqrt(inputs["curvature"].double())
+    t_p = torch.acosh(torch.clamp_min(g, 1.0))
+    gram_tol = (gram_error_bound(emb, rows, cols, d1).double()
+                + 16 * u * (1 + t_p) * torch.clamp_min(g, 1.0))
+    t_lo = torch.acosh(torch.clamp_min(g - gram_tol, 1.0))
+    t_hi = torch.acosh(torch.clamp_min(g + gram_tol, 1.0))
+    alpha, beta, gamma, _, _ = config.weights()
+    tol = alpha * ((t_hi - t_lo) / sc + 4 * u) + 24 * u
+    if config.use_frequency:
+        counts = inputs["counts"].double()
+        denom = torch.log1p(torch.clamp_min(
+            inputs["max_pair_count"].double(), 1.0)).clamp_min(1e-9)
+        tol = tol + beta * 8 * u * (torch.log1p(counts) / denom + 1)
+        tol = tol + gamma * (0.25 * _coherence_spread(
+            inputs, rows, cols, x, y, sig, sc, t_lo, t_p, t_hi) + 4 * u)
+    return gram_tol, tol
+
+
+def _coherence_spread(inputs, rows, cols, x, y, sig, sc, t_lo, t_p, t_hi):
+    """:func:`score_tolerance`'s bound on the spread of the average
+    distance from each row's midpoint to the samples, float64 (T,)."""
+    import torch
+
+    from hyptokenizer_tpu_torch.ops import lorentz as L
+    from hyptokenizer_tpu_torch.tokenizer.enhanced_state import GRAD_EPS
+
+    u = U32
+    lengths = inputs["lengths"]
+    s = inputs["coh_samples"].long()
+    if s.numel() == 0:
+        return torch.zeros_like(t_p)
+    ys = inputs["emb"][s].double()
+    d1 = x.shape[1]
+    gamma_n = d1 * u / (1 - d1 * u)
+    w = (lengths[cols].double()
+         / torch.clamp_min(lengths[rows] + lengths[cols], 1).double())
+
+    def mid(t):
+        a, b = (1.0 - w) * t, w * t
+        nx = torch.exp(-b) * (1.0 - torch.exp(-2.0 * a))
+        ny = torch.exp(-a) * (1.0 - torch.exp(-2.0 * b))
+        den = torch.clamp_min(1.0 - torch.exp(-2.0 * t), L.EPS_NORM)
+        m = (nx[:, None] * x + ny[:, None] * y) / den[:, None]
+        return torch.where((t < L.EXP_ZERO_TOL)[:, None], x, m)
+
+    def rel(t):
+        e = torch.exp(-2.0 * t)
+        return 2 * u * e / torch.clamp_min(1.0 - e, 1e-30)
+
+    grams = [(mid(t) * sig) @ ys.T for t in (t_lo, t_p, t_hi)]
+    g_min = torch.minimum(torch.minimum(grams[0], grams[1]), grams[2])
+    g_max = torch.maximum(torch.maximum(grams[0], grams[1]), grams[2])
+    # A coordinate of the midpoint is at most |x_k| + |y_k| (both
+    # coefficients over the denominator are at most 1); its float32
+    # evaluation errs by (r + 2u) times that.
+    t_f = torch.clamp_min(t_lo, ACOSH_1ULP)
+    r = torch.maximum(rel((1.0 - w) * t_f), rel(w * t_f)) + rel(t_f) + 9 * u
+    size = (x.abs() + y.abs()) @ ys.abs().T
+    err = gamma_n * size + r[:, None] * size
+    floor = float(np.float32(1.0 + GRAD_EPS))
+    lo = torch.acosh(torch.clamp_min(g_min - err, floor))
+    hi = torch.acosh(torch.clamp_min(g_max + err, floor))
+    width = (hi - lo + 16 * u * (1 + hi)) / sc
+    not_self = (s[None, :] != rows[:, None]) & (s[None, :] != cols[:, None])
+    cnt = torch.clamp_min(not_self.sum(1), 1).double()
+    spread = torch.where(not_self, width, 0.0).sum(1) / cnt
+    mean_hi = torch.where(not_self, hi / sc, 0.0).sum(1) / cnt
+    return spread + 2 * s.numel() * u * mean_hi
+
+
+def compare_scores(got, want, tol, curvature) -> Dict:
+    """Two ``score_candidates`` results ``(scores (P, T), dists (T,))``
+    against :func:`score_tolerance`'s ``tol``: the candidate masks (-inf
+    scores) and the sentinel rows (inf distances) must be equal; returns
+    them with the largest gaps and the largest gaps over their
+    tolerances (each at most 1 for a pass) of the distances (in gram
+    space) and the scores."""
+    import torch
+
+    gs, gd = got
+    ws, wd = want
+    gram_tol, score_tol = tol
+    masks = (gs.shape == ws.shape and torch.equal(gs == -np.inf, ws == -np.inf)
+             and torch.equal(torch.isfinite(gd), torch.isfinite(wd))
+             and not bool(torch.isnan(gs).any() or torch.isnan(gd).any()))
+    out = {"masks_equal": bool(masks)}
+    if not masks:
+        return out
+    fin = torch.isfinite(wd)
+    sc = torch.sqrt(curvature.double())
+    gap = (torch.cosh(gd[fin].double() * sc)
+           - torch.cosh(wd[fin].double() * sc)).abs()
+    live = ws > -np.inf
+    sgap = torch.where(live, (gs.double() - ws.double()).abs(), 0.0)
+    out.update(
+        dist_max_gap=float((gd[fin] - wd[fin]).abs().max())
+        if fin.any() else 0.0,
+        dist_gap_over_tol=float((gap / gram_tol[fin]).max())
+        if fin.any() else 0.0,
+        score_max_gap=float(sgap.max()) if live.any() else 0.0,
+        score_gap_over_tol=float((sgap / score_tol[None, :]).max())
+        if live.any() else 0.0,
+        candidates=int(live[0].sum()))
+    return out
+
+
+def compare_queues(got, want, keys, score_tol) -> Dict:
+    """Two syncs' queues ``(q_i, q_j, q_score)`` (each (3, K)) of one
+    lexicographically sorted pair table ``keys``: the same number of
+    stored entries in each phase, and entry for entry the same pair with
+    scores within the pair's tolerance, or, where the pairs differ (a
+    near-tie ordered otherwise), scores within the two pairs' tolerances
+    added. Returns ``ok``, the entries that differ and the largest gap
+    over its tolerance."""
+    import torch
+
+    from hyptokenizer_tpu_torch.tokenizer import scoring
+
+    table = scoring._key64(keys[:, 0], keys[:, 1])
+
+    def row(qi, qj):
+        at = torch.searchsorted(table, scoring._key64(qi, qj))
+        return torch.clamp_max(at, table.numel() - 1)
+
+    gi, gj, gs = got
+    wi, wj, ws = want
+    stored = ws > -np.inf
+    ok = torch.equal(gs > -np.inf, stored)
+    same = (gi == wi) & (gj == wj)
+    rg, rw = row(gi, gj), row(wi, wj)
+    allow = torch.where(same, score_tol[rw],
+                        score_tol[rg] + score_tol[rw])
+    gap = torch.where(stored, (gs.double() - ws.double()).abs(), 0.0)
+    ratio = float((gap / allow).max()) if bool(stored.any()) else 0.0
+    return {"ok": bool(ok) and ratio <= 1.0,
+            "differ": int((~same & stored).sum()), "gap_over_tol": ratio}
+
+
+def _check_sync_score(out: Dict, device="cuda") -> None:
+    """Kernel S1 (``enhanced_state.score_candidates`` on the card) against
+    its plain version on the same device, on a synthetic flagship-sized
+    table (:data:`SCORE_TABLE`; :data:`SCORE_TABLE_SMALL` on the CPU,
+    where both sides are the plain version), in the flagship's
+    configuration (frequency and coherence) and in the Quick start's
+    (every feature, the curriculum's three phases) with
+    ``min_pair_freq`` 2 and ``max_token_len`` 6: masks exact, distances
+    and scores within :func:`score_tolerance`, and the queues
+    (``top_k_desc``, ``queue_size`` 4096) within :func:`compare_queues`."""
+    import torch
+
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+    from hyptokenizer_tpu_torch.tokenizer import scoring
+    from hyptokenizer_tpu_torch.tokenizer.state import MergeConfig
+
+    name = "sync_score_selfcheck"
+    dev = torch.device(device)
+    sizes = SCORE_TABLE if dev.type == "cuda" else SCORE_TABLE_SMALL
+    inputs = score_table_inputs(dev, **sizes)
+    configs = {
+        "flagship": E.EnhancedConfig(use_frequency=True, alpha=0.05,
+                                     beta=0.9, gamma=0.05),
+        "quickstart": E.EnhancedConfig(
+            base=MergeConfig(max_token_len=6), use_frequency=True,
+            use_compression=True, compression_weight=0.7,
+            use_hierarchical=True, min_pair_freq=2)}
+    verdict = "pass"
+    worst = {"score_gap": 0.0, "score_gap_over_tol": 0.0,
+             "dist_gap_over_tol": 0.0, "queue_differ": 0}
+    for cname, cfg in configs.items():
+        got = E.score_candidates(cfg, **inputs)
+        want = E.score_candidates_plain(cfg, **inputs)
+        tol = score_tolerance(cfg, inputs)
+        cmp = compare_scores(got, want, tol, inputs["curvature"])
+        k = 4096
+        queues = [scoring.top_k_desc(s, k) for s in (got[0], want[0])]
+        q = [(inputs["keys"][p, 0], inputs["keys"][p, 1], v)
+             for v, p in queues]
+        qcmp = compare_queues(q[0], q[1], inputs["keys"], tol[1])
+        if not cmp["masks_equal"]:
+            verdict = f"FAIL {cname}: candidate masks differ"
+        elif max(cmp["score_gap_over_tol"], cmp["dist_gap_over_tol"]) > 1.0 \
+                or not qcmp["ok"]:
+            verdict = f"FAIL {cname}: {cmp} queues {qcmp}"
+        if verdict != "pass":
+            break
+        worst["score_gap"] = max(worst["score_gap"], cmp["score_max_gap"])
+        worst["score_gap_over_tol"] = max(worst["score_gap_over_tol"],
+                                          cmp["score_gap_over_tol"])
+        worst["dist_gap_over_tol"] = max(worst["dist_gap_over_tol"],
+                                         cmp["dist_gap_over_tol"])
+        worst["queue_differ"] += qcmp["differ"]
+    out[name] = verdict
+    out[f"{name}_rows"] = int(inputs["keys"].shape[0])
+    for key, val in worst.items():
+        out[f"{name}_{key}"] = val
+
+
 # Each verdict's name and the check that writes it.
 SELFCHECKS = (("kernel_selfcheck", "_check_base_kernel"),
               ("enhanced_kernel_selfcheck", "_check_enhanced_kernel"),
-              ("enhanced_full_selfcheck", "_check_enhanced_full_features"))
+              ("enhanced_full_selfcheck", "_check_enhanced_full_features"),
+              ("sync_score_selfcheck", "_check_sync_score"))
 
 
 def kernel_selfcheck(device="cuda") -> Dict:
     """Every kernel against its plain version on the card: K4
     (:func:`_check_base_kernel`), K1 (:func:`_check_enhanced_kernel`), K2
-    and K3 (:func:`_check_enhanced_full_features`).
+    and K3 (:func:`_check_enhanced_full_features`), S1
+    (:func:`_check_sync_score`).
 
     A report: each check records "pass", "FAIL ..." or "error: ..." under
     its name, and a check that raises never discards another's verdict.

@@ -1,8 +1,10 @@
 // Device helpers shared by the port's kernels: the JAX package's clamp
 // constants (hyptokenizer_tpu/ops/lorentz.py), the log-form acosh of the
 // plain version (ops/lorentz.py `acosh`), warp sums, the (value, index)
-// argmin with ties to the lower index, and the row ownership and grid
-// barrier of the cooperative grids (K2's fold, K4).
+// argmin with ties to the lower index, the geodesic point's coefficients,
+// the token hashes' composition and the sorted-table membership (K1, K2
+// and the sync's scoring), and the row ownership and grid barrier of the
+// cooperative grids (K2's fold, K4).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,6 +49,63 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
     argmin_step(v, i, __shfl_xor_sync(kFull, v, o),
                 __shfl_xor_sync(kFull, i, o));
   }
+}
+
+// Coefficients of the length-weighted geodesic point of rows ci and cj
+// (lorentz.geodesic_point):
+// point = degenerate ? x_ci : (num_x * x_ci + num_y * x_cj) / den.
+struct Geodesic {
+  float num_x, num_y, den;
+  bool degenerate;
+};
+
+// From the pair's Minkowski dot and token lengths.
+__device__ inline Geodesic geodesic_coeffs(float dot, int li, int lj) {
+  const float w = (float)lj / (float)max(li + lj, 1);
+  const float d = acosh_log(fmaxf(dot, 1.0f + kAcoshEps));
+  const float a = (1.0f - w) * d;
+  const float b = w * d;
+  Geodesic g;
+  g.num_x = expf(-b) * (1.0f - expf(-2.0f * a));
+  g.num_y = expf(-a) * (1.0f - expf(-2.0f * b));
+  g.den = fmaxf(1.0f - expf(-2.0f * d), kEpsNorm);
+  g.degenerate = d < kExpZeroTol;
+  return g;
+}
+
+// The two rolling hashes' primes (tokenizer/scoring.py HASH_P1, HASH_P2).
+constexpr int kHashP1 = 32749;
+constexpr int kHashP2 = 32719;
+
+// hash(a + b) from hash(a), hash(b) and the byte length of b
+// (scoring.compose_hash), both residues: token_hash is (V, 2), powers
+// (2, max_hash_len).
+__device__ inline void compose_hash(const int* token_hash,
+                                    const int* byte_lengths,
+                                    const int* powers, int max_hash_len,
+                                    int ci, int cj, int* h1, int* h2) {
+  const int pw = min(byte_lengths[cj], max_hash_len - 1);
+  *h1 = (token_hash[2 * ci] * powers[pw] + token_hash[2 * cj]) % kHashP1;
+  *h2 = (token_hash[2 * ci + 1] * powers[max_hash_len + pw] +
+         token_hash[2 * cj + 1]) % kHashP2;
+}
+
+// Membership of `key` in a sorted table of `len` entries whose first `size`
+// are real (scoring.in_sorted_set).
+__device__ inline bool in_sorted(const int* table, int len, int size,
+                                 int key) {
+  int a = 0;
+  int b = len;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (table[mid] < key) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  const int pos = min(a, len - 1);
+  return table[pos] == key && pos < size;
 }
 
 // Eight loads through L2 (ld.global.cg) of base[i[0..7]], sent back to

@@ -139,8 +139,6 @@ constexpr int kRowGroups = kThreads / kRowLanes;  // rows per pass of a block
 // K2's event from block 0 to the other blocks: its number, then a halt
 // flag or the fold's new rows (vocab0, n_apply).
 enum { E_SEQ, E_HALT, E_VOCAB0, E_N_APPLY, E_COUNT };
-constexpr int kHashP1 = 32749;
-constexpr int kHashP2 = 32719;
 
 // Integer loop scalars, in this order in the `si` array (enhanced_loop.py).
 // The last four are read by K2 only.
@@ -194,28 +192,8 @@ struct Params {
                          // threshold growths, or null
 };
 
-// Coefficients of the length-weighted geodesic point of rows ci and cj
-// (lorentz.geodesic_point), summed over one warp:
-// point = degenerate ? x_ci : (num_x * x_ci + num_y * x_cj) / den.
-struct Geodesic {
-  float num_x, num_y, den;
-  bool degenerate;
-};
-
-// From the pair's Minkowski dot (summed over the warp) and token lengths.
-__device__ Geodesic geodesic_coeffs(float dot, int li, int lj) {
-  const float w = (float)lj / (float)max(li + lj, 1);
-  const float d = acosh_log(fmaxf(dot, 1.0f + kAcoshEps));
-  const float a = (1.0f - w) * d;
-  const float b = w * d;
-  Geodesic g;
-  g.num_x = expf(-b) * (1.0f - expf(-2.0f * a));
-  g.num_y = expf(-a) * (1.0f - expf(-2.0f * b));
-  g.den = fmaxf(1.0f - expf(-2.0f * d), kEpsNorm);
-  g.degenerate = d < kExpZeroTol;
-  return g;
-}
-
+// The geodesic coefficients of rows ci and cj (common.cuh
+// `geodesic_coeffs`), their Minkowski dot summed over one warp.
 __device__ Geodesic geodesic(const Params& p, int lane, int ci, int cj) {
   const float* xi = p.emb + (size_t)ci * p.d1;
   const float* xj = p.emb + (size_t)cj * p.d1;
@@ -226,16 +204,6 @@ __device__ Geodesic geodesic(const Params& p, int lane, int ci, int cj) {
   }
   dot = warp_sum_float(dot);
   return geodesic_coeffs(dot, p.lengths[ci], p.lengths[cj]);
-}
-
-// hash(a + b) from hash(a), hash(b) and the byte length of b
-// (scoring.compose_hash), both residues.
-__device__ void compose_hash(const Params& p, int ci, int cj, int* h1,
-                             int* h2) {
-  const int pw = min(p.byte_lengths[cj], p.max_hash_len - 1);
-  *h1 = (p.token_hash[2 * ci] * p.powers[pw] + p.token_hash[2 * cj]) % kHashP1;
-  *h2 = (p.token_hash[2 * ci + 1] * p.powers[p.max_hash_len + pw] +
-         p.token_hash[2 * cj + 1]) % kHashP2;
 }
 
 // One warp merges the pair (ci, cj), at distance `dist`, into row `slot`.
@@ -442,23 +410,6 @@ __device__ int pair_count(const Params& p, int hi, int lo) {
   return (p.pair_keys[2 * pos] == hi && p.pair_keys[2 * pos + 1] == lo)
              ? p.pair_counts[pos]
              : 0;
-}
-
-// Membership of `key` in a sorted table of `len` entries whose first `size`
-// are real (scoring.in_sorted_set).
-__device__ bool in_sorted(const int* table, int len, int size, int key) {
-  int a = 0;
-  int b = len;
-  while (a < b) {
-    const int mid = (a + b) >> 1;
-    if (table[mid] < key) {
-      a = mid + 1;
-    } else {
-      b = mid;
-    }
-  }
-  const int pos = min(a, len - 1);
-  return table[pos] == key && pos < size;
 }
 
 constexpr int kSampleBlock = 512;  // K2's coherence grams held at a time
@@ -936,7 +887,8 @@ dense_loop_kernel(Params p) {
             const int li = p.lengths[di];
             const int lj = p.lengths[dj];
             int h1, h2;
-            compose_hash(p, di, dj, &h1, &h2);
+            compose_hash(p.token_hash, p.byte_lengths, p.powers,
+                         p.max_hash_len, di, dj, &h1, &h2);
             const int key = h1 * 65536 + h2;
             float m;
             if (pidx == 0) {

@@ -17,9 +17,10 @@ state otherwise (``parallel/mesh.py``):
   outputs.
 
 Merge histories are those of one device, bit for bit: the syncs score with
-the single-device formula (``enhanced_state._full_scores_raw``) on the same
-values and break every tie by the packed pair key, which is the
-single-device table's position order. Every rank draws the same numbers
+the single-device scoring (``enhanced_state.score_candidates``: kernel S1
+on the card, the plain formula on the CPU) on the same values and break
+every tie by the packed pair key, which is the single-device table's
+position order. Every rank draws the same numbers
 from a sampler seeded alike (the coherence samples included): no draw
 depends on the rank. After every chunk the ranks compare their merge
 counts and a checksum of their histories, and raise on any difference.
@@ -47,7 +48,6 @@ import functools
 
 import torch
 
-from hyptokenizer_tpu_torch.ops import lorentz as L
 from hyptokenizer_tpu_torch.parallel.mesh import (
     Mesh, all_gather, all_reduce, all_to_all, shard_enhanced_state,
     shard_state,
@@ -86,33 +86,13 @@ def sync_v2(st, config, sampler, mesh: Mesh):
                           max_count, corpus_tokens=tokens)
 
 
-def _score_keys(st, config, rows, cols, valid, counts, samples, max_count,
-                corpus_tokens):
-    """(candidate mask, score3, distances) of the keys (rows, cols): the
-    single-device sync's scoring and candidate gate."""
-    base = st.base
-    dists = L.distance(base.emb[rows], base.emb[cols], base.curvature)
-    dists = torch.where(valid, dists, INF)
-    score3 = E._full_scores_raw(
-        config, base.emb, base.lengths, base.threshold, base.curvature,
-        samples, max_count, corpus_tokens, st.token_hash, st.byte_lengths,
-        st.has_vowel, st.hash_powers, st.morph_table, st.morph_size,
-        st.word_table, st.word_size, rows, cols, dists, counts)
-    ok = valid & (counts >= config.min_pair_freq)
-    if config.base.max_token_len > 0:
-        ok &= (base.lengths[rows] + base.lengths[cols]
-               <= config.base.max_token_len)
-    return ok, score3, dists
-
-
-def _local_topk(config, score3, pk, dists):
-    """This rank's top-K per phase row, tie-broken by packed key:
-    (values (PR, K), packed keys (PR, K), distances (PR, K))."""
+def _local_topk(config, scores, pk, dists):
+    """This rank's top-K per phase row of its (PR, n) ``scores``,
+    tie-broken by packed key: (values (PR, K), packed keys (PR, K),
+    distances (PR, K))."""
     k = config.queue_size
-    sv = (score3.T if config.use_hierarchical
-          else score3[:, :1].T).contiguous()
-    tb = pk[None, :].expand_as(sv)
-    tv, tp = scoring.top_k_desc(sv, k, tiebreak=tb)
+    tb = pk[None, :].expand_as(scores)
+    tv, tp = scoring.top_k_desc(scores, k, tiebreak=tb)
     found = tv > -INF
     sel_pk = torch.where(found, pk[tp], SENT)
     sel_d = torch.where(found, dists[tp], INF)
@@ -205,17 +185,13 @@ def sync_v3(st, config, sampler, mesh: Mesh):
     max_count, corpus_tokens = mx[1], sums[1]
 
     # 3c. score the owned keys (the embeddings are on every rank).
-    valid_u = ok_u != SENT
-    rows = torch.where(valid_u, okeys[:, 0], 0).long()
-    cols = torch.where(valid_u, okeys[:, 1], 0).long()
-    ok, score3, dists = _score_keys(st, config, rows, cols, valid_u, oc_u,
-                                    samples, max_count, corpus_tokens)
-    score3 = torch.where(ok[:, None], score3, -INF)
-    qv = all_reduce(mesh, (score3 > -INF).sum(dim=0).to(torch.int32))
+    scores, dists = E._score_table(st, config, okeys, oc_u, samples,
+                                   max_count, corpus_tokens)
+    qv = all_reduce(mesh, E.valid_totals(scores))
 
     # 3d. local top-K, then the K-sized merge on every rank.
     q_i, q_j, q_dist, q_score = merge_topk_lists(
-        mesh, config, *_local_topk(config, score3, ok_u, dists))
+        mesh, config, *_local_topk(config, scores, ok_u, dists))
 
     # The table: every rank's first T/D owned uniques, gathered. Complete
     # only when no rank owns more than T/D (else `overflow` raised
@@ -270,22 +246,19 @@ def sync_frozen(st, config, sampler, mesh: Mesh):
                                 max(int(base.vocab_size), 1)
                                 ).to(torch.int32).to(dev)
     sl = slice(mesh.rank * td, (mesh.rank + 1) * td)
-    khi, klo = st.pair_keys[sl, 0], st.pair_keys[sl, 1]
-    counts = st.pair_counts[sl]
-    valid = khi != SENT
-    rows = torch.where(valid, khi, 0).long()
-    cols = torch.where(valid, klo, 0).long()
-    ok, score3, dists = _score_keys(st, config, rows, cols, valid, counts,
-                                    samples, st.max_pair_count,
-                                    st.corpus_tokens)
+    keys = st.pair_keys[sl]
+    khi, klo = keys[:, 0], keys[:, 1]
+    scores, dists = E._score_table(st, config, keys, st.pair_counts[sl],
+                                   samples, st.max_pair_count,
+                                   st.corpus_tokens)
     nm = int(base.num_merges)
     consumed = scoring.in_sorted_pair_set(
-        khi, klo, *E._sorted_history(base.merges[:nm]), nm) & valid
-    score3 = torch.where((ok & ~consumed)[:, None], score3, -INF)
-    qv = all_reduce(mesh, (score3 > -INF).sum(dim=0).to(torch.int32))
+        khi, klo, *E._sorted_history(base.merges[:nm]), nm)
+    scores = torch.where(consumed[None, :], -INF, scores)
+    qv = all_reduce(mesh, E.valid_totals(scores))
     pk = scoring.pack_lex(khi, klo)
     q_i, q_j, q_dist, q_score = merge_topk_lists(
-        mesh, config, *_local_topk(config, score3, pk, dists))
+        mesh, config, *_local_topk(config, scores, pk, dists))
     return dataclasses.replace(
         st, coh_samples=samples, corpus_synced=base.num_merges.clone(),
         q_i=q_i, q_j=q_j, q_dist=q_dist, q_score=q_score,

@@ -229,7 +229,7 @@ def assemble_enhanced_buffers(t_feat, morph_tab, word_tab, morph_size: int,
 
 # ----------------------------------------------------------------- features
 
-COHERENCE_BLOCK = 4096  # rows per gram of the coherence (below)
+COHERENCE_BLOCK = 4096  # rows per gram of the plain coherence (below)
 
 
 def _coherence(emb, rows, cols, lengths, c, threshold, samples_idx):
@@ -237,10 +237,12 @@ def _coherence(emb, rows, cols, lengths, c, threshold, samples_idx):
 
     Past one block, the midpoint-to-sample grams are taken
     ``COHERENCE_BLOCK`` rows at a time, the last block padded: every gram
-    then has the same shape whatever the number of candidates, so a
-    candidate's score has the same bits in the single-device sync (T
-    rows) and in a sharded one (each rank's owned keys), and the two keep
-    the same order of near-equal scores."""
+    then has the same shape whatever the number of candidates, so on the
+    plain path a candidate's score has the same bits in the single-device
+    sync (T rows) and in a sharded one (each rank's owned keys), and the
+    two keep the same order of near-equal scores. (Kernel S1, which scores
+    the syncs' tables on the card, gives a row the same bits wherever it
+    lies in the table, and needs no padding.)"""
     w_j = (lengths[cols].float()
            / torch.clamp_min(lengths[rows] + lengths[cols], 1).float())
     mid = L.geodesic_point(emb[rows], emb[cols], w_j)
@@ -333,6 +335,85 @@ def _full_scores_raw(config: EnhancedConfig, emb, lengths, threshold,
             lengths, token_hash, byte_lengths, has_vowel, hash_powers,
             morph_table, morph_size, word_table, word_size, rows, cols)
     return score
+
+
+def score_candidates(config: EnhancedConfig, emb, lengths, threshold,
+                     curvature, coh_samples, max_pair_count, corpus_tokens,
+                     token_hash, byte_lengths, has_vowel, hash_powers,
+                     morph_table, morph_size, word_table, word_size, keys,
+                     counts):
+    """Scores and distances of every row of a pair table ``keys`` (T, 2) /
+    ``counts`` (T,), the syncs' candidates (single-device and sharded):
+    ``(scores (P, T), dists (T,))``, P = 3 with the curriculum and 1
+    without (its three phase columns are equal). A row is a candidate when
+    it is no sentinel, its count reaches ``min_pair_freq`` and, with
+    ``max_token_len`` > 0, its merged token is not too long; any other row
+    scores -inf, and a sentinel row has distance inf.
+
+    Kernel S1 (``ops/cuda/sync_score.py``) for CUDA tensors, one launch;
+    :func:`score_candidates_plain` for CPU tensors."""
+    if keys.device.type != "cuda":
+        return score_candidates_plain(
+            config, emb, lengths, threshold, curvature, coh_samples,
+            max_pair_count, corpus_tokens, token_hash, byte_lengths,
+            has_vowel, hash_powers, morph_table, morph_size, word_table,
+            word_size, keys, counts)
+    from hyptokenizer_tpu_torch.ops.cuda import sync_score
+    return sync_score.score(
+        keys, counts, emb, lengths, token_hash, byte_lengths, has_vowel,
+        hash_powers, morph_table, morph_size, word_table, word_size,
+        coh_samples, curvature, threshold, max_pair_count, corpus_tokens,
+        use_frequency=config.use_frequency,
+        use_compression=config.use_compression,
+        use_hierarchical=config.use_hierarchical, weights=config.weights(),
+        min_pair_freq=config.min_pair_freq,
+        max_token_len=config.base.max_token_len)
+
+
+def score_candidates_plain(config: EnhancedConfig, emb, lengths, threshold,
+                           curvature, coh_samples, max_pair_count,
+                           corpus_tokens, token_hash, byte_lengths,
+                           has_vowel, hash_powers, morph_table, morph_size,
+                           word_table, word_size, keys, counts):
+    """:func:`score_candidates` in PyTorch ops (:func:`_full_scores_raw`
+    and the candidate gate), on any device: the plain version of kernel
+    S1."""
+    # Self-pairs (a, a) are real corpus candidates ('aa' from doubled
+    # letters); only the sentinel rows are excluded.
+    valid = keys[:, 0] != scoring.PKEY_SENT
+    rows = torch.where(valid, keys[:, 0], 0).long()
+    cols = torch.where(valid, keys[:, 1], 0).long()
+    dists = L.distance(emb[rows], emb[cols], curvature)
+    dists = torch.where(valid, dists, INF)
+    score3 = _full_scores_raw(
+        config, emb, lengths, threshold, curvature, coh_samples,
+        max_pair_count, corpus_tokens, token_hash, byte_lengths, has_vowel,
+        hash_powers, morph_table, morph_size, word_table, word_size, rows,
+        cols, dists, counts)
+    ok = valid & (counts >= config.min_pair_freq)
+    if config.base.max_token_len > 0:
+        ok &= (lengths[rows] + lengths[cols] <= config.base.max_token_len)
+    score3 = torch.where(ok[:, None], score3, -INF)
+    phases = score3 if config.use_hierarchical else score3[:, :1]
+    return phases.T.contiguous(), dists
+
+
+def _score_table(st: EnhancedState, config: EnhancedConfig, keys, counts,
+                 samples, max_count, corpus_tokens):
+    """:func:`score_candidates` with ``st``'s rows, features and tables."""
+    base = st.base
+    return score_candidates(
+        config, base.emb, base.lengths, base.threshold, base.curvature,
+        samples, max_count, corpus_tokens, st.token_hash, st.byte_lengths,
+        st.has_vowel, st.hash_powers, st.morph_table, st.morph_size,
+        st.word_table, st.word_size, keys, counts)
+
+
+def valid_totals(scores: torch.Tensor) -> torch.Tensor:
+    """The three phases' counts of candidates (scores above -inf) of a
+    (P, T) score array, int32 (3,); one phase row stands for all three."""
+    qv = (scores > -INF).sum(dim=1).to(torch.int32)
+    return qv.expand(3).contiguous() if qv.shape[0] == 1 else qv
 
 
 # --------------------------------------------------------------- curvature
@@ -635,46 +716,31 @@ def _sync_finish(st: EnhancedState, config: EnhancedConfig, sampler,
         pair_keys=keys, pair_counts=counts, max_pair_count=max_count,
         pair_unique=n_unique)
 
-    # Self-pairs (a, a) are real corpus candidates ('aa' from doubled
-    # letters); only the sentinel rows are excluded.
-    valid = keys[:, 0] != scoring.PKEY_SENT
-    rows = torch.where(valid, keys[:, 0], 0).long()
-    cols = torch.where(valid, keys[:, 1], 0).long()
-    dists = L.distance(base.emb[rows], base.emb[cols], base.curvature)
-    dists = torch.where(valid, dists, INF)
-
-    score3 = _full_scores(st, config, rows, cols, dists, counts)
-    ok = valid & (counts >= config.min_pair_freq)
-    if config.base.max_token_len > 0:
-        ok &= (base.lengths[rows] + base.lengths[cols]
-               <= config.base.max_token_len)
-    score3 = torch.where(ok[:, None], score3, -INF)
+    scores, dists = _score_table(st, config, keys, counts, st.coh_samples,
+                                 max_count, corpus_tokens)
     if config.frozen_freqs:
         # Restored counts can carry historical pairs; a live corpus cannot
         # (replay removes every adjacency of a merged pair).
         nm = int(base.num_merges)
         consumed = scoring.in_sorted_pair_set(
-            keys[:, 0], keys[:, 1], *_sorted_history(base.merges[:nm]),
-            nm) & valid
-        score3 = torch.where(consumed[:, None], -INF, score3)
+            keys[:, 0], keys[:, 1], *_sorted_history(base.merges[:nm]), nm)
+        scores = torch.where(consumed[None, :], -INF, scores)
 
     k = config.queue_size
-    if config.use_hierarchical:
-        top_vals, top_pos = scoring.top_k_desc(score3.T.contiguous(), k)
-        q_valid_total = (score3 > -INF).sum(dim=0).to(torch.int32)
-    else:
-        # Without the curriculum the three phase columns are identical.
-        tv1, tp1 = scoring.top_k_desc(score3[:, :1].T.contiguous(), k)
-        top_vals = tv1.expand(3, k).contiguous()
-        top_pos = tp1.expand(3, k)
-        q_valid_total = (score3[:, 0] > -INF).sum().to(torch.int32).expand(3)
+    top_vals, top_pos = scoring.top_k_desc(scores, k)
+    if not config.use_hierarchical:
+        # Without the curriculum the three phase queues are one.
+        top_vals = top_vals.expand(3, k).contiguous()
+        top_pos = top_pos.expand(3, k)
     stored = top_vals > -INF
+    # A stored entry is a candidate, so its key is no sentinel.
+    top_keys = keys[top_pos]
     return dataclasses.replace(
         st,
-        q_i=torch.where(stored, rows[top_pos], -1).to(torch.int32),
-        q_j=torch.where(stored, cols[top_pos], -1).to(torch.int32),
+        q_i=torch.where(stored, top_keys[..., 0], -1),
+        q_j=torch.where(stored, top_keys[..., 1], -1),
         q_dist=torch.where(stored, dists[top_pos], INF),
-        q_score=top_vals, q_valid_total=q_valid_total.contiguous(),
+        q_score=top_vals, q_valid_total=valid_totals(scores),
         needs_resync=torch.zeros_like(st.needs_resync))
 
 

@@ -24,7 +24,16 @@ and K4 wrappers refuse CPU and non-contiguous tensors. The replay's
 selection kernel (ops/cuda/csrc/replay_select.cu) is held to
 ``scoring.parity_take_plain`` and ``matching_round_plain`` exactly, at
 lengths around its tile and at the flagship's 2.9M slots, and the rank and
-fixpoint replays of a real merge window on the card to the CPU's.
+fixpoint replays of a real merge window on the card to the CPU's. The
+sync's scoring kernel S1 (ops/cuda/csrc/sync_score.cu) is held to
+``enhanced_state.score_candidates_plain`` on the same card tensors:
+candidate masks and sentinel distances exact, distances and scores within
+``evals/selfcheck.score_tolerance`` (the pair's gram summed in two orders,
+carried through the acosh, the midpoint's float32 coefficients and the
+sigmoid: about 5e-6 on a score), at the flagship's table size, ragged
+lengths around its 64-row tile, d+1 = 9 to 301, with and without each
+feature; and a sync on the card to the same state's sync on the CPU,
+queue entry for entry up to near-ties within that tolerance.
 """
 
 import dataclasses
@@ -40,6 +49,7 @@ from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
 from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
 from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
 from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
+from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
 from hyptokenizer_tpu_torch.tokenizer import (
     WORDS_WITH_SPACE, EnhancedHyperbolicTokenizer, HyperbolicTokenizer)
 from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
@@ -131,6 +141,7 @@ def test_kernel_builds(cuda):
     assert _build.load(K3.SOURCE).pairwise_min_best_launch is not None
     assert _build.load(K4.SOURCE).merge_loop_launch is not None
     assert _build.load(RS.SOURCE).replay_select_round_launch is not None
+    assert _build.load(S1.SOURCE).sync_score_launch is not None
 
 
 @pytest.mark.parametrize("kw", [
@@ -795,3 +806,133 @@ def test_replay_on_wiki_corpus_matches_cpu(cuda, wiki_window, policy):
     # The counters add the CPU replay's rounds too, which launch nothing.
     assert counters["replay.select_launches"] == RS.launches
     assert counters["replay.match_rounds"] == 2 * RS.launches
+
+
+# The sync's scoring, kernel S1.
+
+SCORE_SMALL = dict(n_vocab=300, d=16, n_samples=50)
+SCORE_CASES = {
+    "flagship_size": dict(selfcheck.SCORE_TABLE),
+    "one_row": dict(SCORE_SMALL, table_size=1, n_pairs=1),
+    "tile_minus_one": dict(SCORE_SMALL, table_size=63, n_pairs=50),
+    "one_tile": dict(SCORE_SMALL, table_size=64, n_pairs=64),
+    "tile_plus_one": dict(SCORE_SMALL, table_size=65, n_pairs=60),
+    "ragged": dict(SCORE_SMALL, table_size=4097, n_pairs=3000),
+    "all_sentinel_tail": dict(SCORE_SMALL, table_size=1024, n_pairs=70),
+    "no_samples": dict(SCORE_SMALL, table_size=1000, n_pairs=900,
+                       n_samples=0),
+    "more_samples_than_a_pass": dict(SCORE_SMALL, table_size=1000,
+                                     n_pairs=900, n_samples=150),
+    "d1_9": dict(SCORE_SMALL, d=8, table_size=2000, n_pairs=1800),
+    "d1_301": dict(SCORE_SMALL, d=300, table_size=2000, n_pairs=1800),
+    "curvature_one": dict(SCORE_SMALL, table_size=2000, n_pairs=1800,
+                          curvature=1.0),
+    "near_origin": dict(SCORE_SMALL, table_size=2000, n_pairs=1800,
+                        sigma=0.01, curvature=0.7),
+}
+SCORE_CONFIGS = {
+    "flagship": dict(use_frequency=True, alpha=0.05, beta=0.9, gamma=0.05),
+    "distance_only": dict(),
+    "compression": dict(use_compression=True),
+    "curriculum": dict(use_hierarchical=True),
+    "all_features": dict(use_frequency=True, use_compression=True,
+                         compression_weight=0.7, use_hierarchical=True),
+    "gated": dict(use_frequency=True, use_compression=True,
+                  use_hierarchical=True, min_pair_freq=2,
+                  base=S.MergeConfig(max_token_len=3)),
+    "gated_no_curriculum": dict(use_frequency=True, min_pair_freq=2,
+                                base=S.MergeConfig(max_token_len=0)),
+}
+
+
+def check_scores(config, inputs):
+    """S1 against the plain version on the same card tensors; returns the
+    comparison (``selfcheck.compare_scores``)."""
+    S1.reset_launches()
+    got = E.score_candidates(config, **inputs)
+    assert S1.launches == 1
+    want = E.score_candidates_plain(config, **inputs)
+    tol = selfcheck.score_tolerance(config, inputs)
+    cmp = selfcheck.compare_scores(got, want, tol, inputs["curvature"])
+    assert cmp["masks_equal"], cmp
+    assert cmp["dist_gap_over_tol"] <= 1.0, cmp
+    assert cmp["score_gap_over_tol"] <= 1.0, cmp
+    return cmp
+
+
+@pytest.mark.parametrize("case", list(SCORE_CASES))
+def test_sync_score_matches_plain(cuda, case):
+    inputs = selfcheck.score_table_inputs(cuda, **SCORE_CASES[case])
+    for name, kw in SCORE_CONFIGS.items():
+        cmp = check_scores(E.EnhancedConfig(**kw), inputs)
+        if name == "all_features" and case == "flagship_size":
+            assert cmp["candidates"] > 50_000
+
+
+def test_sync_score_self_pairs_and_samples_on_rows(cuda):
+    """A table of self pairs (a, a) only, every sample one of the rows:
+    each row's coherence leaves out the samples equal to it."""
+    inputs = selfcheck.score_table_inputs(cuda, **dict(
+        SCORE_SMALL, table_size=200, n_pairs=150))
+    ids = torch.arange(150, device=cuda, dtype=torch.int32) * 2
+    inputs["keys"][:150] = torch.stack([ids, ids], dim=-1)
+    inputs["coh_samples"] = ids[:50].flip(0).contiguous()
+    for kw in SCORE_CONFIGS.values():
+        check_scores(E.EnhancedConfig(**kw), inputs)
+
+
+def test_sync_score_refuses_mismatched_tensors(cuda):
+    inputs = selfcheck.score_table_inputs(cuda, **dict(
+        SCORE_SMALL, table_size=100, n_pairs=80))
+    cfg = E.EnhancedConfig(use_frequency=True)
+    for name, bad in (("counts", inputs["counts"][:50]),
+                      ("lengths", inputs["lengths"][:-1]),
+                      ("emb", inputs["emb"].t().contiguous().t()),
+                      ("keys", inputs["keys"].long()),
+                      ("threshold", inputs["threshold"].cpu())):
+        with pytest.raises(ValueError, match=name):
+            E.score_candidates(cfg, **dict(inputs, **{name: bad}))
+
+
+def state_to(st, dev):
+    """A copy of the enhanced state ``st`` on ``dev``."""
+    return dataclasses.replace(
+        st, base=dataclasses.replace(st.base, **{
+            f.name: getattr(st.base, f.name).to(dev)
+            for f in dataclasses.fields(st.base)}),
+        **{f.name: getattr(st, f.name).to(dev)
+           for f in dataclasses.fields(st) if f.name != "base"})
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(use_hierarchical=True, use_compression_aware=True,
+             use_dense_channel=True, min_pair_freq=2)])
+def test_sync_on_the_card_matches_cpu(cuda, kw):
+    """One sync of a trained state on the card (S1) and on the CPU (the
+    plain version), with the same draws: the same pair table exactly, and
+    queues equal entry for entry up to near-ties within
+    ``selfcheck.score_tolerance``; ``sync.score_launches`` counts the one
+    launch under a profiler."""
+    tok = small_tokenizer("cpu", d=16, **kw)
+    tok.optimize_merges(steps=40, log_every=40)
+    st_cpu = tok.enh_state
+    st_card = state_to(st_cpu, cuda)
+    cfg = tok.enh_config
+    want = E.sync_corpus(st_cpu, cfg, NumpySampler(3, "cpu"))
+    S1.reset_launches()
+    metrics.tracing()
+    with torch.profiler.profile():
+        got = E.sync_corpus(st_card, cfg, NumpySampler(3, cuda))
+        torch.cuda.synchronize()
+    assert metrics.trace_snapshot()["counters"]["sync.score_launches"] == 1
+    assert S1.launches == 1
+    for name in ("pair_keys", "pair_counts", "coh_samples", "corpus",
+                 "max_pair_count", "corpus_tokens", "q_valid_total"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    inputs = selfcheck.state_score_inputs(want)
+    _, tol = selfcheck.score_tolerance(cfg, inputs)
+    cmp = selfcheck.compare_queues(
+        (got.q_i.cpu(), got.q_j.cpu(), got.q_score.cpu()),
+        (want.q_i, want.q_j, want.q_score), want.pair_keys, tol)
+    assert cmp["ok"], cmp
+    assert int((want.q_score > -np.inf).sum()) > 0
