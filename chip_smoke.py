@@ -391,7 +391,7 @@ def plain_segment(st, cfg, budgets):
     per_step = []
     sc = E.state_scalars(st)
     for _ in range(K12.SEGMENT_STEPS):
-        if K12._halted(sc, *budgets):
+        if E._halted(sc, *budgets):
             break
         st = E.enhanced_step(st, cfg, None)
         now = E.state_scalars(st)
@@ -747,8 +747,8 @@ def check_k1(tok):
         return K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
 
     def run_plain():
-        return K1.run_segment_plain(E.clone_state(st0), cfg, *budgets,
-                                    sampler=None)
+        return E.run_segment_plain(E.clone_state(st0), cfg, *budgets, None,
+                                   K1.SEGMENT_STEPS)
 
     sk = run_kernel()
     sp = run_plain()
@@ -979,7 +979,7 @@ def k1_floor_state(st0, cfg):
         st0.base, threshold=torch.zeros_like(st0.base.threshold)))
     sc = E.state_scalars(st)
     budgets = (sc["num_merges"] + LOG_EVERY,
-               sc["step"] + K1.SEGMENT_STEPS + 1, K1.NO_CURVATURE_STOP)
+               sc["step"] + K1.SEGMENT_STEPS + 1, E.NO_CURVATURE_STOP)
     return st, cfg0, budgets
 
 
@@ -1288,7 +1288,7 @@ class KernelTimer:
 
         zero = torch.zeros((), dtype=torch.int32, device="cuda")
         wrap(K12, "run_segment_cuda",
-             lambda st, cfg, *_: ("enhanced_loop_dense" if K12.uses_dense(cfg)
+             lambda st, cfg, *_: ("enhanced_loop_dense" if cfg.uses_dense
                                   else "enhanced_loop"),
              lambda st: st.base.step.clone())
         wrap(K3, "pairwise_min_best", lambda *_: "pairwise_min_best",

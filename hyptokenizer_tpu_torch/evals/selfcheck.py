@@ -86,14 +86,13 @@ def _lockstep_enhanced(tok, n_chunks: int, chunk: int, out: Dict,
                        name: str, seed: int = 0) -> None:
     """Hold the segment kernel of ``tok``'s configuration (K1 or K2) to its
     plain version on ``tok``'s device, ``n_chunks`` chunks of ``chunk``
-    merges, each one sync plus segments (``enhanced_loop.run_chunk``).
+    merges, each one sync plus segments (``enhanced_state.run_chunk``).
 
     Both runs of a chunk draw from samplers with the same seed. Writes the
     verdict ("pass" or "FAIL ...") to ``out[name]``, the merges checked to
     ``out[name + "_merges"]`` and the counts of reordered and near-tied
     chunks to ``out[name + "_reorders"]`` and ``out[name + "_dist_ties"]``.
     """
-    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop
     from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 
     st = E.clone_state(tok.enh_state)
@@ -103,13 +102,11 @@ def _lockstep_enhanced(tok, n_chunks: int, chunk: int, out: Dict,
     ok = True
     for k in range(n_chunks):
         n0 = int(st.base.num_merges)
-        st_k = enhanced_loop.run_chunk(
-            E.clone_state(st), tok.enh_config, chunk,
-            E.TorchSampler(seed + k, dev))
-        st_x = enhanced_loop.run_chunk(
-            E.clone_state(st), tok.enh_config, chunk,
-            E.TorchSampler(seed + k, dev), plain=True)
-        nk, nx = int(st_k.base.num_merges), int(st_x.base.num_merges)
+        st_k, sk = E.run_chunk(E.clone_state(st), tok.enh_config, chunk,
+                               E.TorchSampler(seed + k, dev))
+        st_x, sx = E.run_chunk(E.clone_state(st), tok.enh_config, chunk,
+                               E.TorchSampler(seed + k, dev), plain=True)
+        nk, nx = sk["num_merges"], sx["num_merges"]
         ok = _compare_chunks(
             st_k.base.merges[n0:nk].cpu().numpy(),
             st_k.base.merge_dists[n0:nk].cpu().numpy(),
@@ -117,7 +114,7 @@ def _lockstep_enhanced(tok, n_chunks: int, chunk: int, out: Dict,
             st_x.base.merge_dists[n0:nx].cpu().numpy(), stats)
         total = nx - int(tok.enh_state.base.num_merges)
         st = st_x  # oracle resync: noise never cascades across chunks
-        if not ok or bool(st.base.stopped):
+        if not ok or sx["stopped"]:
             break
     out[name] = "pass" if ok else f"FAIL {stats.get('first_bad')}"
     out[f"{name}_merges"] = total
@@ -311,7 +308,6 @@ def _lockstep_steps(tok, n_segments: int, out: Dict, name: str,
     table out as the v3 sharded sync does."""
     import torch
 
-    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K
     from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 
     cfg = tok.enh_config
@@ -335,12 +331,12 @@ def _lockstep_steps(tok, n_segments: int, out: Dict, name: str,
         if sc["stopped"]:
             break
         curv_stop = ((sc["curv_last"] // freq + 1) * freq if freq > 0
-                     else K.NO_CURVATURE_STOP)
-        budgets = (K.NO_CURVATURE_STOP, K.NO_CURVATURE_STOP, curv_stop)
-        while ok and not K._halted(sc, *budgets):
-            sk = K.run_segment(E.clone_state(st), cfg, *budgets, None,
+                     else E.NO_CURVATURE_STOP)
+        budgets = (E.NO_CURVATURE_STOP, E.NO_CURVATURE_STOP, curv_stop)
+        while ok and not E._halted(sc, *budgets):
+            sk = E.run_segment(E.clone_state(st), cfg, *budgets, None,
                                n_steps=1)
-            sp = K.run_segment(E.clone_state(st), cfg, *budgets, None,
+            sp = E.run_segment(E.clone_state(st), cfg, *budgets, None,
                                n_steps=1, plain=True)
             a, b = E.state_scalars(sk), E.state_scalars(sp)
             if a != b:
@@ -375,7 +371,7 @@ def _lockstep_steps(tok, n_segments: int, out: Dict, name: str,
                                           "row_err_over_tol": ratio,
                                           "features_equal": same}
                     ok = False
-                elif K.uses_dense(cfg):
+                elif cfg.uses_dense:
                     # The fold, on the kernel's own new rows (which may
                     # differ from the plain version's within their
                     # conditioning, above).

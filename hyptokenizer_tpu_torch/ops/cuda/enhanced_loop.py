@@ -1,31 +1,23 @@
-"""Kernels K1 and K2 (the scored merge segment) and the chunk driver around
-them.
+"""Kernels K1 and K2: the scored merge segment on the card.
 
 Replaces ``hyptokenizer_tpu/ops/pallas/enhanced_loop.py``: the Pallas
-``_kernel`` (:156) in its two configurations, ``_run_segment`` (:623) and
-``_run_chunk_fused`` (:790). Both kernels are ``csrc/enhanced_loop.cu`` (see
-the note at its top for their design and bounds): K1 runs the corpus-only
-configuration (``use_dense_channel=False`` with a corpus), K2 every
-configuration with the dense channel (``use_dense_channel`` or no corpus
-feature). Their plain version is ``tokenizer/enhanced_state.enhanced_step``,
-looped to the same halt conditions by :func:`run_segment_plain`.
+``_kernel`` (:156) in its two configurations and ``_run_segment`` (:623).
+Both kernels are ``csrc/enhanced_loop.cu`` (see the note at its top for
+their design and bounds): K1 runs the corpus-only configuration
+(``use_dense_channel=False`` with a corpus), K2 every configuration with
+the dense channel (``EnhancedConfig.uses_dense``). Their plain version is
+``tokenizer/enhanced_state.enhanced_step``; the chunk loop that chooses
+between the two and relaunches segments between syncs and curvature steps
+is ``tokenizer/enhanced_state.run_chunk``.
 
-:func:`run_segment` launches the configuration's kernel for a state on the
-card and runs the plain version for a state on the CPU; for a CUDA state it
-launches or raises, never falls back. ``launches`` counts K1's launches,
-``dense_launches`` K2's. K1 is one thread block that keeps the phase queues
-in shared memory for the launch (:func:`smem_plan`); K2 is a cooperative
-grid (:func:`dense_grid_size`) whose block 0 runs the steps and whose
-blocks fold their own rows. K2 reads the pair table in the layout
-``config.pair_table_hashed`` names: one lexicographically sorted table, or
-the v3 sharded sync's hash partitions (``parallel/sharded.py``).
-
-:func:`run_chunk` is the segment relaunch loop: one corpus sync, then
-segments that halt at every adaptive-curvature event, with the curvature
-Adam step in PyTorch between them. It keeps the JAX loop's bounds (merge
-budget ``n_steps``, step budget ``n_steps + 1024``) and raises if a
-segment leaves the step counter unchanged without halting, so a kernel
-that fails to advance cannot loop forever.
+:func:`run_segment_cuda` launches the configuration's kernel once, in
+place; it raises on a state it cannot run, never falls back. ``launches``
+counts K1's launches, ``dense_launches`` K2's. K1 is one thread block that
+keeps the phase queues in shared memory for the launch (:func:`smem_plan`);
+K2 is a cooperative grid (:func:`dense_grid_size`) whose block 0 runs the
+steps and whose blocks fold their own rows. K2 reads the pair table in the
+layout ``config.pair_table_hashed`` names: one lexicographically sorted
+table, or the v3 sharded sync's hash partitions (``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -36,14 +28,12 @@ import dataclasses
 import torch
 
 from hyptokenizer_tpu_torch.ops.cuda import _build
-from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 from hyptokenizer_tpu_torch.tokenizer import scoring
 from hyptokenizer_tpu_torch.utils import metrics
 
 SOURCE = "enhanced_loop"
 MAX_BATCH = 8192        # the batch's arrays fill shared memory beyond this
 SEGMENT_STEPS = 1024    # steps per launch (the JAX package's segment_grid)
-NO_CURVATURE_STOP = 1 << 30
 SMEM_LIMIT = 232_448    # shared memory a block may use on sm_90 (227 KB)
 SMEM_RESERVE = 22_528   # kept for K1's static shared memory (pair tables)
 PHASE_ENTRY_BYTES = 16  # q_i, q_j, q_dist and q_score of one queue entry
@@ -63,7 +53,8 @@ def reset_launches() -> None:
 
 def uses_dense(config) -> bool:
     """Whether a configuration runs the dense channel (kernel K2)."""
-    return config.use_dense_channel or not config.needs_corpus
+    # Kept beside the property: the benchmark's launch marks call it.
+    return config.uses_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,25 +119,6 @@ def dense_grid_size(device: torch.device, config) -> int:
     return _GRID[key]
 
 
-def _halted(sc: dict, m_budget: int, s_budget: int, curv_stop: int) -> bool:
-    return bool(sc["stopped"] or sc["needs_resync"]
-                or sc["num_merges"] >= m_budget or sc["step"] >= s_budget
-                or sc["num_merges"] >= curv_stop)
-
-
-def run_segment_plain(st, config, m_budget: int, s_budget: int,
-                      curv_stop: int, sampler,
-                      n_steps: int = SEGMENT_STEPS):
-    """The plain version of the kernel: ``enhanced_step`` looped until a
-    halt condition holds or ``n_steps`` steps ran. The sampler is never
-    drawn from inside a segment (it halts at curvature events)."""
-    for _ in range(n_steps):
-        if _halted(E.state_scalars(st), m_budget, s_budget, curv_stop):
-            break
-        st = E.enhanced_step(st, config, sampler)
-    return st
-
-
 def _check_tensors(obj, want: dict, prefix: str = "") -> None:
     for name, dtype in want.items():
         t = getattr(obj, name)
@@ -158,7 +130,7 @@ def _check_tensors(obj, want: dict, prefix: str = "") -> None:
 
 def _check_cuda_state(st, config) -> None:
     nb = max(1, config.merge_batch)
-    dense = uses_dense(config)
+    dense = config.uses_dense
     if nb > MAX_BATCH:
         raise ValueError(f"merge_batch {nb} > {MAX_BATCH}: the batch's "
                          "arrays would outgrow shared memory")
@@ -201,7 +173,7 @@ def _launch_segment(st, config, m_budget: int, s_budget: int,
                     curv_stop: int, n_steps: int, counts=None):
     global launches, dense_launches
     _check_cuda_state(st, config)
-    dense = uses_dense(config)
+    dense = config.uses_dense
     base = st.base
     dev = base.emb.device
     si = torch.cat([
@@ -263,83 +235,6 @@ def _launch_segment(st, config, m_budget: int, s_budget: int,
         base=dataclasses.replace(
             base, vocab_size=si[0], num_merges=si[1], step=si[2],
             empty_rounds=si[3], stopped=si[4].bool(), threshold=sf[0]))
-
-
-def run_segment(st, config, m_budget: int, s_budget: int, curv_stop: int,
-                sampler, n_steps: int = SEGMENT_STEPS, plain: bool = False,
-                counts=None):
-    """A segment on the state's own device: kernel K1 or K2 on the card,
-    their plain version on the CPU, or everywhere when ``plain`` is asked
-    for (the oracle of ``evals/selfcheck.py``). ``counts``: the kernel's
-    (:func:`run_segment_cuda`); the plain version counts its own."""
-    if plain or st.base.emb.device.type == "cpu":
-        return run_segment_plain(st, config, m_budget, s_budget, curv_stop,
-                                 sampler, n_steps)
-    return run_segment_cuda(st, config, m_budget, s_budget, curv_stop,
-                            n_steps, counts=counts)
-
-
-def _segment_end(sc: dict, m_budget: int, s_budget: int,
-                 curv_stop: int) -> str:
-    """Why a segment ended, from the scalars after it: the first halt
-    condition that holds, else ``cap`` (it ran all its steps)."""
-    for reason, hit in (("stopped", sc["stopped"]),
-                        ("resync", sc["needs_resync"]),
-                        ("merges", sc["num_merges"] >= m_budget),
-                        ("steps", sc["step"] >= s_budget),
-                        ("curvature", sc["num_merges"] >= curv_stop)):
-        if hit:
-            return reason
-    return "cap"
-
-
-def run_chunk(st, config, n_steps: int, sampler,
-              segment_steps: int = SEGMENT_STEPS, plain: bool = False,
-              sync=None):
-    """One sync, then segments until ``n_steps`` merges, a resync, a stop or
-    the step budget. ``plain`` runs the plain version on any device;
-    ``sync`` replaces ``enhanced_state.sync_corpus`` (the sharded syncs of
-    ``parallel/sharded.py``, same arguments). Spans: ``sync`` (the sync and
-    the scalars' read that waits for it), ``segment.wait`` (the scalars'
-    read after each segment); counters ``segment.end.<reason>``
-    (:func:`_segment_end`) and, while tracing, K2's ``merge.dense`` and
-    ``threshold.empty_growth`` (the plain version counts its own in
-    ``enhanced_step``; K1 counts neither)."""
-    with metrics.span("sync"):
-        st = (sync or E.sync_corpus)(st, config, sampler)
-        sc = E.state_scalars(st)
-    m_budget = sc["num_merges"] + n_steps
-    s_budget = sc["step"] + n_steps + 1024
-    freq = config.curvature_freq if config.use_adaptive_curvature else 0
-    while not _halted(sc, m_budget, s_budget, NO_CURVATURE_STOP):
-        if config.use_adaptive_curvature:
-            st = E._maybe_update_curvature(st, config, sampler)
-        curv_stop = ((int(st.curv_last) // freq + 1) * freq if freq > 0
-                     else NO_CURVATURE_STOP)
-        tracing = metrics.tracing()
-        counts = None
-        if tracing and uses_dense(config) and not plain and \
-                st.base.emb.device.type == "cuda":
-            counts = torch.zeros((2,), dtype=torch.int32,
-                                 device=st.base.emb.device)
-        st = run_segment(st, config, m_budget, s_budget, curv_stop, sampler,
-                         segment_steps, plain, counts=counts)
-        with metrics.span("segment.wait"):
-            now = E.state_scalars(st)
-        if tracing:
-            metrics.count("segment.end." + _segment_end(
-                now, m_budget, s_budget, curv_stop))
-            if counts is not None:
-                dense_merges, growths = counts.tolist()
-                metrics.count("merge.dense", dense_merges)
-                metrics.count("threshold.empty_growth", growths)
-        if now["step"] == sc["step"] and not (now["stopped"]
-                                              or now["needs_resync"]):
-            raise RuntimeError(
-                f"merge segment made no progress at step {now['step']} "
-                f"(merges {now['num_merges']}): the kernel did not advance")
-        sc = now
-    return st
 
 
 def segment_bytes(st, config, n_merges: int, dense_rows: int = 0) -> int:

@@ -328,10 +328,11 @@ def check_replicas(mesh: Mesh, base) -> None:
 def run_enhanced_sharded(st, config, n_steps: int, mesh: Mesh, sampler):
     """One chunk of the enhanced loop across the ranks:
     ``enhanced_state.run_enhanced`` (the same sync -> segment -> resync
-    pacing) with the path's sync; the segments run K1/K2 on the card,
-    their plain version on the CPU. Every rank passes its own copy of the same state and a sampler
-    seeded alike; returns the state, whole on every rank (the corpus
-    gathered), and the number of syncs."""
+    pacing of ``enhanced_state.run_chunk``) with the path's sync; the
+    segments run K1/K2 on the card, their plain version on the CPU. Every
+    rank passes its own copy of the same state and a sampler seeded alike;
+    returns the state, whole on every rank (the corpus gathered), and the
+    number of syncs."""
     if st.base.emb.shape[0] % mesh.size != 0:
         raise ValueError("max_vocab_size not divisible by mesh size")
     path = select_sync_path(st, config, mesh)

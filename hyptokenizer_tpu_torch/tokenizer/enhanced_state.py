@@ -14,6 +14,11 @@ back into those arrays (``state.insert_batch``).
 card launches the kernel, and ``chip_smoke.py`` holds the two against each
 other.
 
+The chunk loop lives here too: :func:`run_enhanced` runs
+:func:`run_chunk` (one sync, then segments between curvature steps), whose
+:func:`run_segment` launches K1/K2 on the card or loops the plain step on
+the CPU.
+
 Random numbers. The JAX package draws from its state's PRNG key at every
 sync (coherence samples) and at every curvature event (negatives and
 distortion pairs). Here those draws come from a *sampler* passed in by the
@@ -29,6 +34,7 @@ import dataclasses
 import torch
 
 from hyptokenizer_tpu_torch.ops import lorentz as L
+from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop
 from hyptokenizer_tpu_torch.tokenizer import scoring
 from hyptokenizer_tpu_torch.tokenizer.state import (
     THRESHOLD_CAP, MergeConfig, MergeState, StatsSampler, insert_batch,
@@ -92,6 +98,11 @@ class EnhancedConfig:
     def needs_corpus(self) -> bool:
         return self.has_corpus and (self.use_frequency or self.use_compression
                                     or self.use_hierarchical)
+
+    @property
+    def uses_dense(self) -> bool:
+        """Whether the loop runs the dense channel (kernel K2, else K1)."""
+        return self.use_dense_channel or not self.needs_corpus
 
     def weights(self):
         """Cascaded feature weights (alpha, beta, gamma, comp_w, morph_w)."""
@@ -262,18 +273,10 @@ def _coherence(emb, rows, cols, lengths, c, threshold, samples_idx):
     return 1.0 / (1.0 + torch.exp(avg - threshold))
 
 
-def _morph_scores(st: EnhancedState, rows, cols):
-    """(n, 3) morphology score per phase for candidate pairs."""
-    return _morph_scores_raw(
-        st.base.lengths, st.token_hash, st.byte_lengths, st.has_vowel,
-        st.hash_powers, st.morph_table, st.morph_size, st.word_table,
-        st.word_size, rows, cols)
-
-
 def _morph_scores_raw(lengths, token_hash, byte_lengths, has_vowel,
                       hash_powers, morph_table, morph_size, word_table,
                       word_size, rows, cols):
-    """:func:`_morph_scores` on explicit arrays."""
+    """(n, 3) morphology score per phase for candidate pairs."""
     len_i = lengths[rows]
     len_j = lengths[cols]
     p1 = torch.where((len_i <= 2) & (len_j <= 2), 0.8, 0.2)
@@ -289,28 +292,16 @@ def _morph_scores_raw(lengths, token_hash, byte_lengths, has_vowel,
     return torch.stack([p1, p2, p3], dim=-1).float()
 
 
-def _full_scores(st: EnhancedState, config: EnhancedConfig, rows, cols,
-                 dists, freqs):
-    """(n, 3) combined score per phase with the reference's weight cascade.
-
-    Coherence uses the sync's sample set ``st.coh_samples``; compression the
-    sync-time token total ``st.corpus_tokens``."""
-    base = st.base
-    return _full_scores_raw(
-        config, base.emb, base.lengths, base.threshold, base.curvature,
-        st.coh_samples, st.max_pair_count, st.corpus_tokens, st.token_hash,
-        st.byte_lengths, st.has_vowel, st.hash_powers, st.morph_table,
-        st.morph_size, st.word_table, st.word_size, rows, cols, dists, freqs)
-
-
 def _full_scores_raw(config: EnhancedConfig, emb, lengths, threshold,
                      curvature, coh_samples, max_pair_count, corpus_tokens,
                      token_hash, byte_lengths, has_vowel, hash_powers,
                      morph_table, morph_size, word_table, word_size,
                      rows, cols, dists, freqs):
-    """:func:`_full_scores` on explicit arrays: the single-device sync and
-    the sharded syncs (``parallel/sharded.py``, on each rank's keys) score
-    with this one formula."""
+    """(n, 3) combined score per phase with the reference's weight cascade:
+    the single-device sync, the sharded syncs (``parallel/sharded.py``, on
+    each rank's keys) and the dense candidate score with this one formula.
+    Coherence uses the sync's sample set ``coh_samples``; compression the
+    sync-time token total ``corpus_tokens``."""
     alpha, beta, gamma, comp_w, morph_w = config.weights()
     n = rows.shape[0]
     dev = dists.device
@@ -524,8 +515,12 @@ def _dense_candidate(st: EnhancedState, config: EnhancedConfig, pidx: int):
     else:
         freq = scoring.lookup_pair_counts(di[None], dj[None], st.pair_keys,
                                           st.pair_counts)
-    score = _full_scores(st, config, di[None], dj[None], dd[None],
-                         freq)[0, pidx]
+    score = _full_scores_raw(
+        config, base.emb, base.lengths, base.threshold, base.curvature,
+        st.coh_samples, st.max_pair_count, st.corpus_tokens, st.token_hash,
+        st.byte_lengths, st.has_vowel, st.hash_powers, st.morph_table,
+        st.morph_size, st.word_table, st.word_size, di[None], dj[None],
+        dd[None], freq)[0, pidx]
     valid = torch.isfinite(dd) & (dd < base.threshold)
     if config.base.max_token_len > 0:
         # Backstop for the structural fold gate (a state re-scanned on load
@@ -567,9 +562,8 @@ def enhanced_step(st: EnhancedState, config: EnhancedConfig,
 
     pidx = int(torch.clamp(st.phase - 1, 0, 2))
     nb = max(1, config.merge_batch)
-    use_dense = config.use_dense_channel or not config.needs_corpus
     dense_valid = False
-    if use_dense:
+    if config.uses_dense:
         di, dj, dd, dense_valid, dense_score = _dense_candidate(st, config,
                                                                 pidx)
         dense_valid = bool(dense_valid)
@@ -633,7 +627,7 @@ def enhanced_step(st: EnhancedState, config: EnhancedConfig,
                 hit = ((st.q_i[..., None] == ii.int())
                        & (st.q_j[..., None] == jj.int())).any(-1)
                 st.q_score[hit] = -INF
-            base = insert_batch(base, ii, jj, dd_b, fold=use_dense,
+            base = insert_batch(base, ii, jj, dd_b, fold=config.uses_dense,
                                 max_token_len=config.base.max_token_len)
         else:
             empty = base.empty_rounds + 1
@@ -752,6 +746,112 @@ def _sorted_history(pairs: torch.Tensor):
 
 # ------------------------------------------------------------------ chunk
 
+NO_CURVATURE_STOP = 1 << 30
+
+
+def _segment_end(sc: dict, m_budget: int, s_budget: int,
+                 curv_stop: int) -> str:
+    """Why a segment ended, from the scalars after it: the first halt
+    condition that holds, else ``cap`` (it ran all its steps)."""
+    for reason, hit in (("stopped", sc["stopped"]),
+                        ("resync", sc["needs_resync"]),
+                        ("merges", sc["num_merges"] >= m_budget),
+                        ("steps", sc["step"] >= s_budget),
+                        ("curvature", sc["num_merges"] >= curv_stop)):
+        if hit:
+            return reason
+    return "cap"
+
+
+def _halted(sc: dict, m_budget: int, s_budget: int, curv_stop: int) -> bool:
+    return _segment_end(sc, m_budget, s_budget, curv_stop) != "cap"
+
+
+def run_segment_plain(st: EnhancedState, config: EnhancedConfig,
+                      m_budget: int, s_budget: int, curv_stop: int, sampler,
+                      n_steps: int):
+    """The plain version of the segment kernel: :func:`enhanced_step`
+    looped until a halt condition holds or ``n_steps`` steps ran. The
+    sampler is never drawn from inside a segment (it halts at curvature
+    events)."""
+    for _ in range(n_steps):
+        if _halted(state_scalars(st), m_budget, s_budget, curv_stop):
+            break
+        st = enhanced_step(st, config, sampler)
+    return st
+
+
+def run_segment(st: EnhancedState, config: EnhancedConfig, m_budget: int,
+                s_budget: int, curv_stop: int, sampler, n_steps: int,
+                plain: bool = False, counts=None):
+    """A segment on the state's own device: kernel K1 or K2 on the card
+    (``enhanced_loop.run_segment_cuda``), their plain version on the CPU,
+    or everywhere when ``plain`` is asked for (the oracle of
+    ``evals/selfcheck.py``). ``counts``: the kernel's; the plain version
+    counts its own."""
+    if plain or st.base.emb.device.type == "cpu":
+        return run_segment_plain(st, config, m_budget, s_budget, curv_stop,
+                                 sampler, n_steps)
+    return enhanced_loop.run_segment_cuda(st, config, m_budget, s_budget,
+                                          curv_stop, n_steps, counts=counts)
+
+
+def run_chunk(st: EnhancedState, config: EnhancedConfig, n_steps: int,
+              sampler, plain: bool = False,
+              sync=None) -> tuple[EnhancedState, dict]:
+    """One sync, then segments until ``n_steps`` merges, a resync, a stop or
+    the step budget (``n_steps + 1024`` steps), with the curvature Adam
+    step between segments when one is due (the JAX package's
+    ``ops/pallas/enhanced_loop._run_chunk_fused``). Returns the state and
+    the scalars last read (:func:`state_scalars`: once after the sync, once
+    after each segment). ``plain`` runs the plain version on any device;
+    ``sync`` replaces :func:`sync_corpus` (the sharded syncs of
+    ``parallel/sharded.py``, same arguments). Raises if a segment leaves
+    the step counter unchanged without halting, so that neither a kernel
+    nor a curvature step that fails to advance loops forever. Spans:
+    ``sync`` (the sync and the read that waits for it), ``segment.wait``
+    (the read after each segment); counters ``segment.end.<reason>``
+    (:func:`_segment_end`) and, while tracing, K2's ``merge.dense`` and
+    ``threshold.empty_growth`` (the plain version counts its own)."""
+    with metrics.span("sync"):
+        st = (sync or sync_corpus)(st, config, sampler)
+        sc = state_scalars(st)
+    m_budget = sc["num_merges"] + n_steps
+    s_budget = sc["step"] + n_steps + 1024
+    freq = config.curvature_freq if config.use_adaptive_curvature else 0
+    while not _halted(sc, m_budget, s_budget, NO_CURVATURE_STOP):
+        curv_stop = NO_CURVATURE_STOP
+        if freq > 0:
+            if sc["num_merges"] // freq > sc["curv_last"] // freq:
+                st = _maybe_update_curvature(st, config, sampler)
+                sc["curv_last"] = int(st.curv_last)
+            curv_stop = (sc["curv_last"] // freq + 1) * freq
+        tracing = metrics.tracing()
+        counts = None
+        if tracing and config.uses_dense and not plain and \
+                st.base.emb.device.type == "cuda":
+            counts = torch.zeros((2,), dtype=torch.int32,
+                                 device=st.base.emb.device)
+        st = run_segment(st, config, m_budget, s_budget, curv_stop, sampler,
+                         enhanced_loop.SEGMENT_STEPS, plain, counts)
+        with metrics.span("segment.wait"):
+            now = state_scalars(st)
+        if tracing:
+            metrics.count("segment.end." + _segment_end(
+                now, m_budget, s_budget, curv_stop))
+            if counts is not None:
+                dense_merges, growths = counts.tolist()
+                metrics.count("merge.dense", dense_merges)
+                metrics.count("threshold.empty_growth", growths)
+        if now["step"] == sc["step"] and not (now["stopped"]
+                                              or now["needs_resync"]):
+            raise RuntimeError(
+                f"merge segment made no progress at step {now['step']} "
+                f"(merges {now['num_merges']}): the kernel did not advance")
+        sc = now
+    return st, sc
+
+
 def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
                  sampler, sync=None) -> tuple[EnhancedState, int]:
     """One chunk: merge up to ``n_steps`` tokens, re-syncing the corpus
@@ -759,21 +859,18 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
 
     Returns the state and the number of syncs the chunk took. Each sync is
     followed by kernel segments on the card, or by the plain step loop for a
-    state on the CPU (``ops/cuda/enhanced_loop.run_chunk``). ``sync``
-    replaces :func:`sync_corpus` (the sharded syncs,
-    ``parallel/sharded.py``). Counters: ``sync.opening`` for the first
-    sync, ``sync.resync.<reason>`` for each resync (:func:`_resync_reason`),
-    and ``sync.phase<n>`` for each sync by the phase of its merge count
-    (:func:`_phase_index`).
+    state on the CPU (:func:`run_chunk`). ``sync`` replaces
+    :func:`sync_corpus` (the sharded syncs, ``parallel/sharded.py``).
+    Counters: ``sync.opening`` for the first sync, ``sync.resync.<reason>``
+    for each resync (:func:`_resync_reason`), and ``sync.phase<n>`` for
+    each sync by the phase of its merge count (:func:`_phase_index`).
     """
-    if (config.use_dense_channel or not config.needs_corpus) and \
-            bool(st.base.best_dist[0] == -INF):
+    if config.uses_dense and bool(st.base.best_dist[0] == -INF):
         raise ValueError(
             "dense candidate channel requested but best_dist is poisoned: "
             "this state was built for corpus-only training, which never "
             "maintains the dense-candidate arrays. Keep "
             "use_dense_channel=False with a corpus.")
-    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop
     remaining = n_steps
     before = int(st.base.num_merges)
     rounds = 0
@@ -782,15 +879,13 @@ def run_enhanced(st: EnhancedState, config: EnhancedConfig, n_steps: int,
             metrics.count(_resync_reason(st, config, before) if rounds
                           else "sync.opening")
             metrics.count(f"sync.phase{_phase_index(config, before) + 1}")
-        st = enhanced_loop.run_chunk(st, config, remaining, sampler,
-                                     sync=sync)
+        st, sc = run_chunk(st, config, remaining, sampler, sync=sync)
         rounds += 1
-        now = int(st.base.num_merges)
-        remaining -= now - before
-        before = now
-        if remaining <= 0 or bool(st.base.stopped):
+        remaining -= sc["num_merges"] - before
+        before = sc["num_merges"]
+        if remaining <= 0 or sc["stopped"]:
             break
-        if not bool(st.needs_resync):
+        if not sc["needs_resync"]:
             break  # candidate drought / step cap: the caller decides
     return st, rounds
 

@@ -156,11 +156,12 @@ def test_segment_matches_plain(cuda, kw):
     tok = small_tokenizer(cuda, use_adaptive_curvature=False, **kw)
     cfg = tok.enh_config
     st0 = E.sync_corpus(tok.enh_state, cfg, tok.sampler)
-    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    budgets = (10_000, 10_000, E.NO_CURVATURE_STOP)
     before = K1.launches
     sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
     assert K1.launches == before + 1
-    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    sp = E.run_segment_plain(E.clone_state(st0), cfg, *budgets, None,
+                             K1.SEGMENT_STEPS)
     assert int(sk.base.num_merges) > 0
     assert_segments_match(sk, sp)
 
@@ -201,9 +202,10 @@ def test_k1_queue_plans_match_plain(cuda, case):
         cfg = dataclasses.replace(cfg, phase2_step=6, phase3_step=14)
     assert K1.smem_plan(cfg.queue_size, cfg.merge_batch).resident == resident
     st0 = E.sync_corpus(tok.enh_state, cfg, tok.sampler)
-    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    budgets = (10_000, 10_000, E.NO_CURVATURE_STOP)
     sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
-    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    sp = E.run_segment_plain(E.clone_state(st0), cfg, *budgets, None,
+                             K1.SEGMENT_STEPS)
     assert int(sk.base.num_merges) >= 16
     if cfg.use_hierarchical:
         assert int(sp.phase) == 3 and int(st0.phase) == 1
@@ -221,9 +223,10 @@ def test_k1_duplicate_queue_pairs_match_plain(cuda, kw):
     st0 = E.sync_corpus(tok.enh_state, cfg, tok.sampler)
     for q in (st0.q_i, st0.q_j, st0.q_dist, st0.q_score):
         q[:, 1] = q[:, 0]
-    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    budgets = (10_000, 10_000, E.NO_CURVATURE_STOP)
     sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
-    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    sp = E.run_segment_plain(E.clone_state(st0), cfg, *budgets, None,
+                             K1.SEGMENT_STEPS)
     assert int(sk.base.num_merges) >= 16
     assert_segments_match(sk, sp)
 
@@ -239,9 +242,10 @@ def test_k1_copy_dead_in_one_phase_matches_plain(cuda):
     for q in (st0.q_i, st0.q_j, st0.q_dist, st0.q_score):
         q[:, 1] = q[:, 0]
     st0.q_score[0, 1] = -float("inf")
-    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    budgets = (10_000, 10_000, E.NO_CURVATURE_STOP)
     sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
-    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    sp = E.run_segment_plain(E.clone_state(st0), cfg, *budgets, None,
+                             K1.SEGMENT_STEPS)
     assert int(sk.base.num_merges) >= 16
     assert_segments_match(sk, sp)
 
@@ -276,9 +280,10 @@ def test_k1_large_batches_match_plain(cuda, dup):
     if dup:
         for q in (st0.q_i, st0.q_j, st0.q_dist, st0.q_score):
             q[:, 1] = q[:, 0]
-    budgets = (10_000, 10_000, K1.NO_CURVATURE_STOP)
+    budgets = (10_000, 10_000, E.NO_CURVATURE_STOP)
     sk = K1.run_segment_cuda(E.clone_state(st0), cfg, *budgets)
-    sp = K1.run_segment_plain(E.clone_state(st0), cfg, *budgets, None)
+    sp = E.run_segment_plain(E.clone_state(st0), cfg, *budgets, None,
+                             K1.SEGMENT_STEPS)
     assert int(sp.base.num_merges) > 3 * 1024
     assert int(sp.phase) == 3 and int(st0.phase) == 1
     assert_segments_match(sk, sp)
@@ -373,7 +378,7 @@ def test_k2_step_lockstep_with_plain(cuda, kw):
     a time from the plain version's state: merges, rows, features and the
     candidate fold."""
     tok = dense_tokenizer(cuda, **kw)
-    assert K1.uses_dense(tok.enh_config)
+    assert tok.enh_config.uses_dense
     out = {}
     K1.reset_launches()
     selfcheck._lockstep_steps(tok, 4, out, "k2")

@@ -34,7 +34,6 @@ from hyptokenizer_tpu.tokenizer import enhanced_state as JE
 from hyptokenizer_tpu.tokenizer import state as JSt
 from hyptokenizer_tpu_torch import convert
 from hyptokenizer_tpu_torch.evals import selfcheck
-from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as TK
 from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer as TorchTok
 from hyptokenizer_tpu_torch.tokenizer import enhanced_state as TE
 from hyptokenizer_tpu_torch.tokenizer import state as TSt
@@ -147,7 +146,7 @@ def test_all_features_matches_xla_and_pallas():
         jx = JE._run_enhanced_xla(jx, jt.enh_config, 8)
         jk = JK.run_enhanced_fused(jk, jt.enh_config, 8, interpret=True,
                                    segment_grid=64)
-        tst = TK.run_chunk(tst, tt.enh_config, 8, sampler)
+        tst, _ = TE.run_chunk(tst, tt.enh_config, 8, sampler)
         np.testing.assert_array_equal(history(tst), history(jx))
         np.testing.assert_array_equal(history(tst), history(jk))
     assert int(tst.base.num_merges) > 10
@@ -174,7 +173,7 @@ def test_all_features_matches_xla_and_pallas():
     sampler = ReplaySampler(jt.enh_state.key)
     sc = tc.enh_state
     for _ in range(3):
-        sc = TK.run_chunk(sc, tc.enh_config, 8, sampler)
+        sc, _ = TE.run_chunk(sc, tc.enh_config, 8, sampler)
     assert not np.array_equal(history(sc), history(tst))
 
 
@@ -190,7 +189,7 @@ def test_length_gate_matches_xla():
     tst = tt.enh_state
     for _ in range(3):
         jx = JE._run_enhanced_xla(jx, jt.enh_config, 8)
-        tst = TK.run_chunk(tst, tt.enh_config, 8, sampler)
+        tst, _ = TE.run_chunk(tst, tt.enh_config, 8, sampler)
     hj, ht = history(jx), history(tst)
     n = min(len(hj), len(ht))
     same = np.all(hj[:n] == ht[:n], axis=1)
@@ -230,7 +229,7 @@ def test_dense_only_matches_xla_and_pallas():
         jx = JE._run_enhanced_xla(jx, jt.enh_config, 12)
         jk = JK.run_enhanced_fused(jk, jt.enh_config, 12, interpret=True,
                                    segment_grid=64)
-        tst = TK.run_chunk(tst, tt.enh_config, 12, sampler)
+        tst, _ = TE.run_chunk(tst, tt.enh_config, 12, sampler)
     nx = int(jx.base.num_merges)
     assert nx == int(tst.base.num_merges) == int(jk.base.num_merges) > 10
     assert int(tst.base.step) == int(jx.base.step)

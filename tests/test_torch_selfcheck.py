@@ -15,7 +15,7 @@ import torch
 
 from hyptokenizer_tpu.evals import selfcheck as JS
 from hyptokenizer_tpu_torch.evals import selfcheck as TS
-from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop
+from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
 
 CHECKS = [("_check_enhanced_kernel", "enhanced_kernel_selfcheck"),
           ("_check_enhanced_full_features", "enhanced_full_selfcheck")]
@@ -34,20 +34,20 @@ def test_enhanced_check_passes_plain_against_plain(check, name):
 def test_corrupted_merge_fails(monkeypatch, check, name):
     """The kernel's side of the second chunk merges a pair the plain
     version did not, at a distance far from the plain pick's."""
-    real = enhanced_loop.run_chunk
+    real = E.run_chunk
     calls = []
 
     def corrupt(st, config, n_steps, sampler, plain=False, **kw):
         n0 = int(st.base.num_merges)
-        out = real(st, config, n_steps, sampler, plain=plain, **kw)
+        out, sc = real(st, config, n_steps, sampler, plain=plain, **kw)
         if not plain:
             calls.append(n0)
             if len(calls) == 2:
                 out.base.merges[n0] = torch.tensor([0, 1], dtype=torch.int32)
                 out.base.merge_dists[n0] += 1.0
-        return out
+        return out, sc
 
-    monkeypatch.setattr(enhanced_loop, "run_chunk", corrupt)
+    monkeypatch.setattr(E, "run_chunk", corrupt)
     out = {}
     getattr(TS, check)(out, device="cpu")
     assert out[name].startswith("FAIL ")

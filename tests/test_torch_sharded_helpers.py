@@ -250,13 +250,6 @@ def test_full_scores_raw_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     assert got.shape == (n, 3)
-    st = dataclasses.replace(tst, coh_samples=samples,
-                             max_pair_count=max_count, corpus_tokens=tokens)
-    eq(TE._full_scores(st, tt.enh_config, rows, cols, dists, freqs), got)
-    eq(TE._morph_scores(tst, rows, cols), TE._morph_scores_raw(
-        b.lengths, tst.token_hash, tst.byte_lengths, tst.has_vowel,
-        tst.hash_powers, tst.morph_table, tst.morph_size, tst.word_table,
-        tst.word_size, rows, cols))
 
 
 def test_coherence_blocks_keep_each_rows_bits():
@@ -287,7 +280,6 @@ def test_enhanced_step_hashed_matches_jax():
     both phase switches), against the JAX loop reading the same table; and
     the same merges as the lexicographic table holding the same pairs."""
     from hyptokenizer_tpu.parallel.sharded import _enhanced_loop_jit
-    from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as TK
     from tests.test_torch_dense import PHASES, ALL_FEATURES
     kw = dict(ALL_FEATURES, use_adaptive_curvature=False)
     jt, tt, jst, tst = synced_pair(**kw)
@@ -304,8 +296,8 @@ def test_enhanced_step_hashed_matches_jax():
         pair_keys=jnp.asarray(hk), pair_counts=jnp.asarray(hc))), jcfg, 24)
 
     def segment(st, cfg):
-        return TK.run_segment_plain(st, cfg, 24, 24 + 1024,
-                                    TK.NO_CURVATURE_STOP, None, 24 + 1024)
+        return TE.run_segment_plain(st, cfg, 24, 24 + 1024,
+                                    TE.NO_CURVATURE_STOP, None, 24 + 1024)
 
     th = segment(th, dataclasses.replace(tcfg, pair_table_hashed=4))
     lex = segment(lex, tcfg)

@@ -19,7 +19,6 @@ import pytest
 
 from hyptokenizer_tpu.ops.pallas import enhanced_loop as JK
 from hyptokenizer_tpu.tokenizer import enhanced_state as JE
-from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as TK
 from hyptokenizer_tpu_torch.tokenizer import enhanced_state as TE
 from tests.torch_port_common import ReplaySampler, history, make_pair
 
@@ -71,7 +70,7 @@ def test_chunks_match_pallas_kernel_interpret():
     for _ in range(2):
         jst = JK.run_enhanced_fused(jst, jt.enh_config, 16, interpret=True,
                                     segment_grid=64)
-        tst = TK.run_chunk(tst, tt.enh_config, 16, sampler)
+        tst, _ = TE.run_chunk(tst, tt.enh_config, 16, sampler)
         np.testing.assert_array_equal(history(tst), history(jst))
     assert int(tst.base.num_merges) >= 32
     assert int(tst.curv_t) == int(jst.curv_t) >= 4
@@ -100,6 +99,6 @@ def test_segment_relaunch_guard(monkeypatch):
     """A segment that leaves the step counter unchanged without halting is
     an error, not a loop."""
     jt, tt = make_pair(use_adaptive_curvature=False)
-    monkeypatch.setattr(TK, "run_segment", lambda st, *a, **k: st)
+    monkeypatch.setattr(TE, "run_segment", lambda st, *a, **k: st)
     with pytest.raises(RuntimeError, match="no progress"):
-        TK.run_chunk(tt.enh_state, tt.enh_config, 8, tt.sampler)
+        TE.run_chunk(tt.enh_state, tt.enh_config, 8, tt.sampler)
