@@ -36,7 +36,10 @@ Phases:
    timed beside its plain versions and ``torch.cummax``; the sync's
    scoring (``sync_score``) on the trained flagship's pair table (masks
    exact, scores within ``evals/selfcheck.score_tolerance``), timed
-   beside its plain version; K2 by lockstep
+   beside its plain version; the curvature Adam step (``curvature_step``,
+   kernel C1) on the trained flagship state and on the all-features state
+   (curvature, moments and rescaled distances within 1e-5 relative, the
+   counters equal), timed beside its plain version; K2 by lockstep
    with oracle resync, step by step over 4 segments from the all-features
    state (``evals/selfcheck._lockstep_steps``: merges as the JAX protocol
    compares them, rows within ``ROW_ATOL`` plus their float32 conditioning,
@@ -222,6 +225,7 @@ def main_path(lines, device="cuda"):
     ``bench.ENHANCED``) and train two chunks. Returns the tokenizer and
     the phase's numbers."""
     from hyptokenizer_tpu_torch import bench
+    from hyptokenizer_tpu_torch.ops.cuda import curvature_step as C1
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
     from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
     from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
@@ -243,13 +247,14 @@ def main_path(lines, device="cuda"):
     K1.reset_launches()
     RS.reset_launches()
     S1.reset_launches()
+    C1.reset_launches()
     t0 = time.perf_counter()
     tok.optimize_merges(steps=TRAIN_STEPS, log_every=LOG_EVERY)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {"enhanced_loop": K1.launches, "replay_select": RS.launches,
-                "sync_score": S1.launches}
+                "sync_score": S1.launches, "curvature_step": C1.launches}
 
     merges = len(tok.merge_history)
     if merges < TRAIN_STEPS or merges != int(tok.state.num_merges):
@@ -317,6 +322,7 @@ def main_path_all(lines, device="cuda"):
     the state the constructor built (for the K2 check) and the phase's
     numbers."""
     from hyptokenizer_tpu_torch import bench
+    from hyptokenizer_tpu_torch.ops.cuda import curvature_step as C1
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
     from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
     from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
@@ -333,6 +339,7 @@ def main_path_all(lines, device="cuda"):
     K12.reset_launches()
     K3.reset_launches()
     S1.reset_launches()
+    C1.reset_launches()
     t0 = time.perf_counter()
     tok = EnhancedHyperbolicTokenizer(
         vocab, emb, device=dev, corpus_sample=lines, **bench.ALLFEATURES)
@@ -369,7 +376,7 @@ def main_path_all(lines, device="cuda"):
              f"{ALL_AFTER_LOAD}) or non-finite rows")
     launches = {"enhanced_loop_dense": K12.dense_launches,
                 "pairwise_min_best": K3.launches,
-                "sync_score": S1.launches}
+                "sync_score": S1.launches, "curvature_step": C1.launches}
     return tok, start, dict(
         ctor_s=ctor_s, train_s=train_s, merges=merges,
         merges_per_s=merges / train_s, phase=tok.current_phase,
@@ -963,6 +970,90 @@ def check_sync_score(tok):
         kernel_ms=kernel_us / reps / 1e3, plain_ms=plain_ms,
         library_ms=None, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms > ops_ms else "operations")
+
+
+def check_curvature_step(tok):
+    """The curvature Adam step's kernel C1 against its plain version
+    (``enhanced_state.curvature_adam_plain``) on the trained state of
+    ``tok``, made due (its counter one interval back), from the same
+    draws: curvature, moments and the rescaled distances within 1e-5
+    relative, their infinities kept, the step and merge counters equal.
+    Then timed with CUDA events over 50 steps (the wrapper's host side
+    included, the draws made once) beside the plain version over 20, and
+    by the profiler's kernel time of its two kernels; bound by bytes: each
+    embedding row the step gathers read once, the draws and the merge
+    pairs read once, the rescaled distances read and written once."""
+    from hyptokenizer_tpu_torch.ops.cuda import curvature_step as C1
+    from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
+
+    cfg = tok.enh_config
+    st = tok.enh_state
+    nm = int(st.base.num_merges)
+    st = dataclasses.replace(st, curv_last=torch.full_like(
+        st.curv_last, nm - cfg.curvature_freq))
+    sc = E.state_scalars(st)
+    draws = E.TorchSampler(7, st.base.emb.device).curvature(
+        cfg.hier_pairs, cfg.hier_negatives, cfg.distortion_samples,
+        sc["vocab_size"])
+    fixed = types.SimpleNamespace(curvature=lambda *_: draws)
+
+    def launch():
+        return E._maybe_update_curvature(st, cfg, fixed, scalars=sc)
+
+    C1.reset_launches()
+    got = launch()
+    want = E.curvature_adam_plain(st, cfg, draws, nm)
+    rel = 0.0
+    for a, b in ((got.base.curvature, want.base.curvature),
+                 (got.curv_m, want.curv_m), (got.curv_v, want.curv_v),
+                 (got.base.best_dist, want.base.best_dist),
+                 (got.q_dist, want.q_dist)):
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin) or \
+                not torch.equal(a[~fin], b[~fin]):
+            fail("curvature_step changed which distances are infinite")
+        if bool(fin.any()):
+            rel = max(rel, float(((a[fin] - b[fin]).abs()
+                                  / b[fin].abs().clamp_min(1e-30)).max()))
+    if rel > 1e-5 or C1.launches != 1 or \
+            not torch.equal(got.curv_t, want.curv_t) or \
+            not torch.equal(got.curv_last, want.curv_last):
+        fail(f"curvature_step differs from the plain version: relative "
+             f"{rel:.3g}, launches {C1.launches}, t {int(got.curv_t)} / "
+             f"{int(want.curv_t)}, last {int(got.curv_last)} / "
+             f"{int(want.curv_last)}")
+
+    ms = event_ms(launch, reps=50)
+    plain_ms = event_ms(lambda: E.curvature_adam_plain(st, cfg, draws, nm),
+                        reps=20)
+    reps = 20
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    kernel_us = sum(e.device_time_total for e in prof.key_averages()
+                    if "terms_kernel" in e.key or "update_kernel" in e.key)
+    negs, ii, jj = draws
+    hp = cfg.hier_pairs
+    take = torch.clamp(max(nm - hp, 0) + torch.arange(
+        hp, device=negs.device), max=max(nm - 1, 0))
+    rows = torch.unique(torch.cat([st.base.merges[take].flatten(),
+                                   negs.flatten(), ii, jj]))
+    d1 = st.base.emb.shape[1]
+    nbytes = (4 * d1 * rows.numel() + 4 * (negs.numel() + 2 * ii.numel())
+              + 8 * hp + 8 * (st.base.best_dist.numel() + st.q_dist.numel()))
+    return dict(
+        name="curvature_step", route="cuda",
+        source="hyptokenizer_tpu_torch/ops/cuda/csrc/curvature_step.cu",
+        replaces="hyptokenizer_tpu/tokenizer/enhanced_state.py "
+                 "_maybe_update_curvature (jax.grad and the Adam update: "
+                 "XLA ops, no pallas_call)",
+        checked=True, max_rel_err=rel, merges=nm,
+        poisoned=bool(st.base.best_dist[0] == -float("inf")),
+        rows_gathered=rows.numel(), ms=ms, kernel_ms=kernel_us / reps / 1e3,
+        plain_ms=plain_ms, library_ms=None,
+        bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
 def k1_floor_state(st0, cfg):
@@ -2266,6 +2357,8 @@ def main() -> None:
           f"{s1['plain_ms']:.3f} ms; score gap {s1['score_gap']:.3g} "
           f"({s1['score_gap_over_tol']:.3g} of its tolerance); launches on "
           f"the main path {s1['launches']}", flush=True)
+    c1 = {"flagship": check_curvature_step(tok),
+          "launches": main["launches"]["curvature_step"]}
     del tok
 
     tok, start, alls = main_path_all(lines)
@@ -2282,6 +2375,19 @@ def main() -> None:
           f"(K1 {alls['corpus_only_launches']}) syncs {alls['chunk_syncs']} "
           f"chunk_seconds {alls['chunk_seconds']}", flush=True)
 
+    c1["all_features"] = check_curvature_step(tok)
+    c1["launches_all_features"] = alls["launches"]["curvature_step"]
+    for path, rec in (("flagship", c1["flagship"]),
+                      ("all-features", c1["all_features"])):
+        print(f"curvature_step on the {path} state ({rec['merges']} merges, "
+              f"{rec['rows_gathered']} rows gathered, best_dist poisoned "
+              f"{rec['poisoned']}): {rec['ms']:.4f} ms a step, kernels "
+              f"{rec['kernel_ms']:.4f} ms on the card; bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); plain "
+              f"{rec['plain_ms']:.3f} ms; max relative error "
+              f"{rec['max_rel_err']:.3g}", flush=True)
+    print(f"curvature_step launches: main path {c1['launches']}, "
+          f"all-features path {c1['launches_all_features']}", flush=True)
     k2 = check_k2(tok, start)
     k2["launches"] = alls["launches"]["enhanced_loop_dense"]
     s1["launches_all_features"] = alls["launches"]["sync_score"]
@@ -2462,7 +2568,7 @@ def main() -> None:
         "gloo_world_two": par["gloo_all_reduce_us"]}}), flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, rs, s1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, rs, s1, c1]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

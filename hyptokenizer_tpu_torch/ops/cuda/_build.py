@@ -7,7 +7,8 @@ named by the hash of its source and of the headers it includes from
 ``csrc/`` (``common.cuh``), so an edited source or header is never served
 stale.
 ``build_all`` starts one nvcc per source, all at once. A failed build
-raises; there is no fallback.
+raises; there is no fallback. :func:`check` and :func:`check_devices` are
+the wrappers' checks of the tensors they hand a kernel.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
@@ -133,3 +134,32 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_target(name)[1])
             _LIBS[name] = lib
         return lib
+
+
+def check(name: str, t, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` (a
+    None entry: any length; ``shape`` None: one element)."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if shape is None:
+        if t.numel() != 1:
+            raise ValueError(f"{name}: {t.numel()} elements, expected one")
+    elif t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple('*' if s is None else s for s in shape)}")
+
+
+def check_devices(tensors, dev) -> None:
+    """Raise unless every ``(name, tensor)`` of ``tensors`` lies on the CUDA
+    device ``dev``."""
+    for name, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: on {t.device}, the kernel needs a "
+                             f"CUDA tensor")
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, the kernel's other "
+                             f"inputs on {dev}")

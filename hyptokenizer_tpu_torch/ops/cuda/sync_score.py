@@ -43,23 +43,6 @@ def _launcher():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` (a
-    None entry: any length; ``shape`` None: one element)."""
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-    if shape is None:
-        if t.numel() != 1:
-            raise ValueError(f"{name}: {t.numel()} elements, expected one")
-    elif t.dim() != len(shape) or any(
-            want is not None and got != want
-            for got, want in zip(t.shape, shape)):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple('*' if s is None else s for s in shape)}")
-
-
 def _launched(rc: int) -> None:
     global launches
     if rc != 0:
@@ -83,8 +66,8 @@ def score(keys, counts, emb, lengths, token_hash, byte_lengths, has_vowel,
     (``curvature``, ``threshold``: float32; ``max_count``,
     ``corpus_tokens``, ``morph_size``, ``word_size``: int32) are
     one-element tensors on the card, read there."""
-    _check("keys", keys, torch.int32, (None, 2))
-    _check("emb", emb, torch.float32, (None, None))
+    _build.check("keys", keys, torch.int32, (None, 2))
+    _build.check("emb", emb, torch.float32, (None, None))
     n = keys.shape[0]
     v, d1 = emb.shape
     tensors = (("keys", keys, None, None),
@@ -106,14 +89,9 @@ def score(keys, counts, emb, lengths, token_hash, byte_lengths, has_vowel,
                ("word_size", word_size, torch.int32, None))
     for name, t, dtype, shape in tensors:
         if dtype is not None:
-            _check(name, t, dtype, shape)
+            _build.check(name, t, dtype, shape)
     dev = keys.device
-    for name, t, _, _ in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: on {t.device}, the kernel needs a "
-                             f"CUDA tensor")
-        if t.device != dev:
-            raise ValueError(f"{name}: on {t.device}, the table on {dev}")
+    _build.check_devices([(name, t) for name, t, _, _ in tensors], dev)
     if d1 < 1 or hash_powers.shape[1] < 1 or morph_table.shape[0] < 1 or \
             word_table.shape[0] < 1:
         raise ValueError("sync_score: empty embedding rows, hash powers or "

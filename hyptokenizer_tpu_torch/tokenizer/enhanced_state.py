@@ -34,7 +34,7 @@ import dataclasses
 import torch
 
 from hyptokenizer_tpu_torch.ops import lorentz as L
-from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop
+from hyptokenizer_tpu_torch.ops.cuda import curvature_step, enhanced_loop
 from hyptokenizer_tpu_torch.tokenizer import scoring
 from hyptokenizer_tpu_torch.tokenizer.state import (
     THRESHOLD_CAP, MergeConfig, MergeState, StatsSampler, insert_batch,
@@ -452,49 +452,77 @@ def _curvature_losses(st: EnhancedState, config: EnhancedConfig, draws,
 
 
 def _maybe_update_curvature(st: EnhancedState, config: EnhancedConfig,
-                            sampler) -> EnhancedState:
-    """Adam step on curvature every ``curvature_freq`` merges.
+                            sampler, scalars: dict = None) -> EnhancedState:
+    """Adam step on curvature every ``curvature_freq`` merges (span
+    ``curvature_adam``, only for a step that fires).
 
     Draws happen only inside a fired update, so the draw sequence is a
     function of merge counts alone: the kernel halts at curvature events and
     this runs between segments, reproducing the step-by-step order.
+    ``scalars``: :func:`state_scalars` of ``st`` as the caller last read
+    them (the chunk loop's), so that the step reads nothing from the
+    device; without them it reads them itself. Kernel C1
+    (``ops/cuda/curvature_step.py``) for CUDA tensors;
+    :func:`curvature_adam_plain` for CPU tensors.
     """
     if config.curvature_freq <= 0:
         return st
-    base = st.base
-    nm = int(base.num_merges)
+    sc = state_scalars(st) if scalars is None else scalars
+    nm = sc["num_merges"]
     freq = config.curvature_freq
-    if nm // freq <= int(st.curv_last) // freq:
+    if nm // freq <= sc["curv_last"] // freq:
         return st
     with metrics.span("curvature_adam"):
         draws = sampler.curvature(config.hier_pairs, config.hier_negatives,
                                   config.distortion_samples,
-                                  max(int(base.vocab_size), 1))
-        with torch.enable_grad():
-            c = base.curvature.detach().clone().requires_grad_(True)
-            g = torch.autograd.grad(
-                _curvature_losses(st, config, draws, c), c)[0]
-        t = st.curv_t + 1
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        m = b1 * st.curv_m + (1 - b1) * g
-        v = b2 * st.curv_v + (1 - b2) * g * g
-        mhat = m / (1 - b1 ** t.float())
-        vhat = v / (1 - b2 ** t.float())
-        c_new = base.curvature - config.curvature_lr * mhat / (
-            torch.sqrt(vhat) + eps)
-        c_new = torch.clamp(c_new, config.curvature_min,
-                            config.curvature_max)
-        # Distances scale by 1/sqrt(c): cached candidate distances are
-        # rescaled, not recomputed (exact under the distance-scale curvature
-        # model).
-        scale = torch.sqrt(base.curvature / c_new)
-        best_dist = torch.where(torch.isfinite(base.best_dist),
-                                base.best_dist * scale, base.best_dist)
+                                  max(sc["vocab_size"], 1))
+        base = st.base
+        if base.emb.device.type != "cuda":
+            return curvature_adam_plain(st, config, draws, nm)
+        c, m, v, t, last, best_dist, q_dist = curvature_step.step(
+            base.emb, base.merges, base.num_merges, *draws, base.curvature,
+            st.curv_m, st.curv_v, st.curv_t, base.best_dist, st.q_dist,
+            hierarchy_weight=config.hierarchy_weight,
+            distortion_weight=config.distortion_weight,
+            lr=config.curvature_lr, curvature_min=config.curvature_min,
+            curvature_max=config.curvature_max)
         return dataclasses.replace(
-            st, base=dataclasses.replace(base, curvature=c_new,
+            st, base=dataclasses.replace(base, curvature=c,
                                          best_dist=best_dist),
-            q_dist=st.q_dist * scale, curv_m=m, curv_v=v, curv_t=t,
-            curv_last=torch.full_like(st.curv_last, nm))
+            q_dist=q_dist, curv_m=m, curv_v=v, curv_t=t, curv_last=last)
+
+
+def curvature_adam_plain(st: EnhancedState, config: EnhancedConfig, draws,
+                         nm: int) -> EnhancedState:
+    """The curvature Adam step from the draws ``draws`` at ``nm`` merges,
+    in PyTorch ops on any device: the gradient of :func:`_curvature_losses`
+    by autograd, the Adam update and the rescale of the cached distances.
+    The plain version of kernel C1."""
+    base = st.base
+    with torch.enable_grad():
+        c = base.curvature.detach().clone().requires_grad_(True)
+        g = torch.autograd.grad(
+            _curvature_losses(st, config, draws, c), c)[0]
+    t = st.curv_t + 1
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    m = b1 * st.curv_m + (1 - b1) * g
+    v = b2 * st.curv_v + (1 - b2) * g * g
+    mhat = m / (1 - b1 ** t.float())
+    vhat = v / (1 - b2 ** t.float())
+    c_new = base.curvature - config.curvature_lr * mhat / (
+        torch.sqrt(vhat) + eps)
+    c_new = torch.clamp(c_new, config.curvature_min, config.curvature_max)
+    # Distances scale by 1/sqrt(c): cached candidate distances are
+    # rescaled, not recomputed (exact under the distance-scale curvature
+    # model).
+    scale = torch.sqrt(base.curvature / c_new)
+    best_dist = torch.where(torch.isfinite(base.best_dist),
+                            base.best_dist * scale, base.best_dist)
+    return dataclasses.replace(
+        st, base=dataclasses.replace(base, curvature=c_new,
+                                     best_dist=best_dist),
+        q_dist=st.q_dist * scale, curv_m=m, curv_v=v, curv_t=t,
+        curv_last=torch.full_like(st.curv_last, nm))
 
 
 # -------------------------------------------------------------------- step
@@ -804,11 +832,14 @@ def run_chunk(st: EnhancedState, config: EnhancedConfig, n_steps: int,
     step between segments when one is due (the JAX package's
     ``ops/pallas/enhanced_loop._run_chunk_fused``). Returns the state and
     the scalars last read (:func:`state_scalars`: once after the sync, once
-    after each segment). ``plain`` runs the plain version on any device;
-    ``sync`` replaces :func:`sync_corpus` (the sharded syncs of
-    ``parallel/sharded.py``, same arguments). Raises if a segment leaves
-    the step counter unchanged without halting, so that neither a kernel
-    nor a curvature step that fails to advance loops forever. Spans:
+    after each segment; the curvature step takes them and reads nothing).
+    ``plain`` runs the plain version on any device; ``sync`` replaces
+    :func:`sync_corpus` (the sharded syncs of ``parallel/sharded.py``, same
+    arguments). Raises if a segment leaves the step counter unchanged
+    without halting, so that a kernel that fails to advance cannot loop
+    forever, and if the curvature counter read after a segment is not the
+    merge count of the last curvature step (segments leave it alone).
+    Spans:
     ``sync`` (the sync and the read that waits for it), ``segment.wait``
     (the read after each segment); counters ``segment.end.<reason>``
     (:func:`_segment_end`) and, while tracing, K2's ``merge.dense`` and
@@ -823,8 +854,8 @@ def run_chunk(st: EnhancedState, config: EnhancedConfig, n_steps: int,
         curv_stop = NO_CURVATURE_STOP
         if freq > 0:
             if sc["num_merges"] // freq > sc["curv_last"] // freq:
-                st = _maybe_update_curvature(st, config, sampler)
-                sc["curv_last"] = int(st.curv_last)
+                st = _maybe_update_curvature(st, config, sampler, scalars=sc)
+                sc["curv_last"] = sc["num_merges"]
             curv_stop = (sc["curv_last"] // freq + 1) * freq
         tracing = metrics.tracing()
         counts = None
@@ -848,6 +879,10 @@ def run_chunk(st: EnhancedState, config: EnhancedConfig, n_steps: int,
             raise RuntimeError(
                 f"merge segment made no progress at step {now['step']} "
                 f"(merges {now['num_merges']}): the kernel did not advance")
+        if now["curv_last"] != sc["curv_last"]:
+            raise RuntimeError(
+                f"curvature step made no progress: its counter reads "
+                f"{now['curv_last']}, expected {sc['curv_last']}")
         sc = now
     return st, sc
 

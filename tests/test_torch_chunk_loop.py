@@ -1,8 +1,8 @@
 """The port's merge-training loop (``enhanced_state.run_enhanced`` and
 ``run_chunk``): it lives in the tokenizer layer, above the kernel wrapper
 of K1/K2, and it reads the device's scalars once after each sync and once
-after each segment, plus the curvature counter once after each curvature
-step it takes. On the CPU the segments are the plain step loop, which
+after each segment, and hands them to the curvature step, which reads
+nothing of its own. On the CPU the segments are the plain step loop, which
 reads its own scalars at every step; those reads are not the chunk
 loop's and are not counted here.
 """
@@ -151,9 +151,9 @@ def _record(mp) -> list:
 @pytest.mark.parametrize("overrides", [{}, DENSE],
                          ids=["corpus-only", "dense"])
 def test_chunk_loop_reads_each_scalar_once(monkeypatch, overrides):
-    """One read of the scalars after each sync and after each segment, one
-    read of the curvature counter after each curvature step, which runs
-    only when one is due; besides them, each chunk's opening read of the
+    """One read of the scalars after each sync and after each segment, and
+    none after a curvature step, which runs only when one is due and takes
+    the loop's scalars; besides them, each chunk's opening read of the
     merge count (and, with the dense channel, of its poisoned-state
     guard). The same merges and the same draws as an unwatched run."""
     vocab, emb = small_vocab_and_emb()
@@ -167,11 +167,11 @@ def test_chunk_loop_reads_each_scalar_once(monkeypatch, overrides):
         got, draws = _train(tok, chunks, per_chunk)
     trace = "".join(marks)
     opening = "ee" if overrides else "e"
-    rounds = r"(?:Ss(?:(?:Cr)?Gs)*)+"
+    rounds = r"(?:Ss(?:C?Gs)*)+"
     assert re.fullmatch(f"(?:{opening}{rounds}){{{chunks}}}", trace), trace
     n = collections.Counter(trace)
     steps = sum(kind == "curvature" for kind, _ in want_draws)
-    assert n["C"] == n["r"] == steps > 0
+    assert n["C"] == steps > 0 and n["r"] == 0
     assert n["S"] >= chunks and n["G"] > n["S"]
     np.testing.assert_array_equal(history(got), history(want))
     assert len(history(got)) == chunks * per_chunk
@@ -181,12 +181,13 @@ def test_chunk_loop_reads_each_scalar_once(monkeypatch, overrides):
 
 
 def test_curvature_step_that_does_not_advance_raises(monkeypatch):
-    """A curvature step that leaves its counter where it was halts the next
-    segment at once, and the chunk loop's no-progress guard raises."""
+    """A curvature step that leaves its counter where it was: the chunk
+    loop reads the counter after the next segment, and its no-progress
+    guard raises."""
     vocab, emb = small_vocab_and_emb()
     tok = EnhancedHyperbolicTokenizer(vocab, emb, device="cpu", **SMALL)
     monkeypatch.setattr(E, "_maybe_update_curvature",
-                        lambda st, config, sampler: st)
+                        lambda st, config, sampler, scalars=None: st)
     with pytest.raises(RuntimeError, match="no progress"):
         E.run_enhanced(tok.enh_state, tok.enh_config, 24,
                        E.TorchSampler(0, "cpu"))
