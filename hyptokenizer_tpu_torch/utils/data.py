@@ -3,9 +3,10 @@
 Port of ``hyptokenizer_tpu/utils/data.py``: ``clean_text``, ``open_text``
 (bz2-aware), ``preprocess_lines``, ``build_initial_vocab`` (first-seen
 order), ``load_vocab``/``save_vocab``, ``encode_corpus_chars`` and
-``shard_align_corpus`` are copied (numpy only); ``initialize_embeddings``
-draws through the port's ``lorentz.random_points`` from a
-``torch.Generator``. ``read_corpus_lines`` reads the flagship benchmark's
+``shard_align_corpus`` are copied (numpy only; ``shard_align_corpus`` packs
+bucket by bucket, its copied loop kept as ``shard_align_corpus_py``);
+``initialize_embeddings`` draws through the port's ``lorentz.random_points``
+from a ``torch.Generator``. ``read_corpus_lines`` reads the flagship benchmark's
 ``data/wiki_corpus.txt.bz2``.
 """
 
@@ -309,7 +310,47 @@ def shard_align_corpus(arr: np.ndarray, n_shards: int, pad_id: int = -1,
     encoder's ``max_tokens`` truncation already pays at the corpus tail).
     Aligned for every divisor of ``n_shards``, so one layout serves meshes of
     1..n_shards devices. No-op for n_shards <= 1.
+
+    Computed bucket by bucket: a bucket holds one contiguous run of the
+    unpadded ids, found from the segments' end offsets by one
+    ``searchsorted``, and is copied as one slice. Identical to
+    :func:`shard_align_corpus_py`.
     """
+    n = arr.shape[0]
+    if n_shards <= 1 or n % n_shards != 0:
+        return arr
+    cap = n // n_shards
+    ids = arr[arr != pad_id]  # PAD appears only as filler, never in-segment
+    used = ids.shape[0]
+    out = np.full((n,), pad_id, np.int32)
+    # Segment ends (exclusive; SEP belongs to its segment), with the
+    # unterminated tail as a last segment.
+    ends = np.flatnonzero(ids == sep_id) + 1
+    if ends.shape[0] == 0 or ends[-1] != used:
+        ends = np.append(ends, used)
+    starts = np.concatenate([[0], ends[:-1]])
+    start = 0
+    for bucket in range(n_shards):
+        if start >= used:
+            break
+        # The first segment that overruns the bucket: a whole segment moves
+        # to the next bucket, one longer than a full bucket is split at the
+        # bucket's end (as is the rest of one already split).
+        k = int(np.searchsorted(ends, start + cap, side="right"))
+        if k == ends.shape[0]:
+            stop = used
+        elif ends[k] - starts[k] > cap:
+            stop = start + cap
+        else:
+            stop = int(starts[k])
+        out[bucket * cap:bucket * cap + stop - start] = ids[start:stop]
+        start = stop
+    return out
+
+
+def shard_align_corpus_py(arr: np.ndarray, n_shards: int, pad_id: int = -1,
+                          sep_id: int = -2) -> np.ndarray:
+    """Reference (segment-by-segment) packing; see shard_align_corpus."""
     n = arr.shape[0]
     if n_shards <= 1 or n % n_shards != 0:
         return arr

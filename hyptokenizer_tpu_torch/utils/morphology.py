@@ -1,5 +1,7 @@
 """Copy of ``hyptokenizer_tpu/utils/morphology.py``
-(the port imports nothing of the JAX package).
+(the port imports nothing of the JAX package), except that
+``analyze_corpus`` counts the n-grams once per distinct word;
+``analyze_corpus_py`` keeps the per-occurrence walk as its oracle.
 
 Host-side corpus morphology analysis for the hierarchical curriculum.
 
@@ -85,7 +87,60 @@ class MorphologyTables:
 
 def analyze_corpus(lines: Iterable[str], use_wordnet: bool = True,
                    substring_word_threshold: int = 5) -> MorphologyTables:
-    """Build validity sets from a corpus (hierarchical_…:110-156 semantics)."""
+    """Build validity sets from a corpus (hierarchical_…:110-156 semantics).
+
+    Words are counted per line as in :func:`analyze_corpus_py`; the n-grams
+    once per distinct word (:func:`_subword_counts`), each occurrence adding
+    that word's count: the same counts as the per-occurrence walk, with one
+    pass over the distinct words in place of one per occurrence (most
+    occurrences in running text repeat a word already seen)."""
+    word_counter: Counter = Counter()
+    for line in lines:
+        word_counter.update(_WORD_RE.findall(line.lower()))
+    return _tables_from_counts(word_counter, _subword_counts(word_counter),
+                               use_wordnet, substring_word_threshold)
+
+
+def _subword_counts(word_counter: Counter) -> Counter:
+    """2-5 char n-gram counts of the words, each weighted by its word's count.
+
+    The distinct words are laid end to end as codepoints. An n-gram's key is
+    the dense rank of its (n-1)-char prefix's key and its last char, so keys
+    stay small for any alphabet; ``np.unique`` groups them, ``np.bincount``
+    sums the weights, and each n-gram's string is read at one of its
+    positions."""
+    if not word_counter:
+        return Counter()
+    words = list(word_counter)
+    lens = np.fromiter(map(len, words), np.int64, len(words))
+    codes = np.frombuffer("".join(words).encode("utf-32-le"), "<u4")
+    weights = np.repeat(np.fromiter(word_counter.values(), np.int64,
+                                    len(words)), lens)
+    # Chars from each position to its word's end, that position included.
+    left = np.repeat(np.cumsum(lens), lens) - np.arange(codes.shape[0])
+    _, char_rank = np.unique(codes, return_inverse=True)
+    base = int(char_rank.max()) + 1
+    key = char_rank.astype(np.int64)   # the 1-gram's key at each position
+    counts: dict = {}
+    for n in range(2, 6):
+        pos = np.flatnonzero(left >= n)
+        if pos.shape[0] == 0:
+            break
+        uniq, rank = np.unique(key[pos] * base + char_rank[pos + n - 1],
+                               return_inverse=True)
+        key[pos] = rank
+        total = np.bincount(rank, weights=weights[pos]).astype(np.int64)
+        start = np.empty(uniq.shape[0], np.int64)
+        start[rank] = pos   # any position of the n-gram spells it
+        grams = np.stack([codes[start + j] for j in range(n)], axis=1)
+        counts.update(zip(grams.view(f"<U{n}").ravel().tolist(),
+                          total.tolist()))
+    return Counter(counts)
+
+
+def analyze_corpus_py(lines: Iterable[str], use_wordnet: bool = True,
+                      substring_word_threshold: int = 5) -> MorphologyTables:
+    """Reference (per-occurrence) corpus analysis; see analyze_corpus."""
     word_counter: Counter = Counter()
     subword_counter: Counter = Counter()
     for line in lines:
@@ -95,7 +150,14 @@ def analyze_corpus(lines: Iterable[str], use_wordnet: bool = True,
             for n in range(2, min(6, len(word) + 1)):
                 for i in range(len(word) - n + 1):
                     subword_counter[word[i:i + n]] += 1
+    return _tables_from_counts(word_counter, subword_counter, use_wordnet,
+                               substring_word_threshold)
 
+
+def _tables_from_counts(word_counter: Counter, subword_counter: Counter,
+                        use_wordnet: bool,
+                        substring_word_threshold: int) -> MorphologyTables:
+    """The common sets by the 80th/70th percentiles of the counts."""
     tables = MorphologyTables(token_frequencies=dict(word_counter))
     if subword_counter:
         thr = np.percentile(list(subword_counter.values()), 80)
