@@ -32,8 +32,11 @@ Phases:
    the card, at the main path's shapes: K1 on one segment from a synced
    state (merge history exact, rows within ``ROW_ATOL``), and its step
    floor (a segment in which no step merges); the replay's selection
-   (``replay_select``) over the flagship's 2.9M corpus slots, exactly,
+   (``replay_select``, R1) over the flagship's 2.9M corpus slots, exactly,
    timed beside its plain versions and ``torch.cummax``; the sync's
+   replay (``replay_pass``, R2) of the first trained chunk's window onto
+   the flagship's 2.9M slots under both policies (corpus, passes and
+   rounds exact), timed beside its plain pass loop; the sync's
    scoring (``sync_score``) on the trained flagship's pair table (masks
    exact, scores within ``evals/selfcheck.score_tolerance``), timed
    beside its plain version; the curvature Adam step (``curvature_step``,
@@ -178,6 +181,7 @@ TRAIN_STEPS = 4096
 LOG_EVERY = 2048
 ALL_STEPS = 6144         # the all-features path crosses merges 1000 and 6000
 ALL_AFTER_LOAD = 512
+STORM_RULES = 7          # a phase-2 storm sync's window (~6.4 merges)
 ROW_ATOL = 1e-5          # fp32 rows: summation order differs (kernel note)
 DIST_ATOL = 1e-5         # K3: tests/test_pallas_pairwise.py's rule
 LOCKSTEP_SEGMENTS = 4   # K2 held to its plain version step by step
@@ -227,6 +231,7 @@ def main_path(lines, device="cuda"):
     from hyptokenizer_tpu_torch import bench
     from hyptokenizer_tpu_torch.ops.cuda import curvature_step as C1
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
+    from hyptokenizer_tpu_torch.ops.cuda import replay_pass as RP
     from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
     from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
     from hyptokenizer_tpu_torch.tokenizer import (
@@ -245,6 +250,7 @@ def main_path(lines, device="cuda"):
     ctor_s = time.perf_counter() - t0
 
     K1.reset_launches()
+    RP.reset_launches()
     RS.reset_launches()
     S1.reset_launches()
     C1.reset_launches()
@@ -253,7 +259,7 @@ def main_path(lines, device="cuda"):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"enhanced_loop": K1.launches, "replay_select": RS.launches,
+    launches = {"enhanced_loop": K1.launches, "replay_pass": RP.launches,
                 "sync_score": S1.launches, "curvature_step": C1.launches}
 
     merges = len(tok.merge_history)
@@ -268,7 +274,7 @@ def main_path(lines, device="cuda"):
                          s["chunk_merges"] for s in tok.training_stats[1:])
                      / sum(s["chunk_seconds"]
                            for s in tok.training_stats[1:]),
-                     launches=launches,
+                     launches=launches, replay_select_launches=RS.launches,
                      chunk_syncs=[s["chunk_syncs"]
                                   for s in tok.training_stats],
                      chunk_seconds=[round(s["chunk_seconds"], 4)
@@ -320,11 +326,15 @@ def main_path_all(lines, device="cuda"):
     across both phase transitions (K2), check the outputs, save/load, and
     train ``ALL_AFTER_LOAD`` more merges after load. Returns the tokenizer,
     the state the constructor built (for the K2 check) and the phase's
-    numbers."""
+    numbers, among them each sync's corpus length and window
+    ``[corpus_synced, num_merges)`` of the ``ALL_STEPS`` training, kept on
+    the card (``syncs``, for :func:`check_replay_pass`)."""
     from hyptokenizer_tpu_torch import bench
     from hyptokenizer_tpu_torch.ops.cuda import curvature_step as C1
     from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K12
     from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+    from hyptokenizer_tpu_torch.ops.cuda import replay_pass as RP
+    from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
     from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
     from hyptokenizer_tpu_torch.tokenizer import EnhancedHyperbolicTokenizer
     from hyptokenizer_tpu_torch.tokenizer import enhanced_state as E
@@ -338,6 +348,8 @@ def main_path_all(lines, device="cuda"):
 
     K12.reset_launches()
     K3.reset_launches()
+    RP.reset_launches()
+    RS.reset_launches()
     S1.reset_launches()
     C1.reset_launches()
     t0 = time.perf_counter()
@@ -347,12 +359,27 @@ def main_path_all(lines, device="cuda"):
     ctor_s = time.perf_counter() - t0
     start = E.clone_state(tok.enh_state)
 
-    t0 = time.perf_counter()
-    tok.optimize_merges(steps=ALL_STEPS, log_every=LOG_EVERY,
-                        target_vocab_size=50_000,
-                        phase_transition_steps={2: 1000, 3: 6000})
-    sync()
-    train_s = time.perf_counter() - t0
+    syncs = []
+    replay_corpus = E.replay_corpus
+
+    def kept(st, config):
+        # one small copy on the card a sync, read after the training
+        syncs.append((st.corpus.shape[0], torch.stack(
+            [st.corpus_synced, st.base.num_merges])))
+        return replay_corpus(st, config)
+
+    E.replay_corpus = kept
+    try:
+        t0 = time.perf_counter()
+        tok.optimize_merges(steps=ALL_STEPS, log_every=LOG_EVERY,
+                            target_vocab_size=50_000,
+                            phase_transition_steps={2: 1000, 3: 6000})
+        sync()
+        train_s = time.perf_counter() - t0
+    finally:
+        E.replay_corpus = replay_corpus
+    syncs = [(n, *w.tolist()) for n, w in syncs]
+    final_corpus = tok.enh_state.corpus.clone()
     merges = len(tok.merge_history)
     if merges < ALL_STEPS or merges != int(tok.state.num_merges):
         fail(f"all-features path trained {merges} merges (device "
@@ -375,13 +402,15 @@ def main_path_all(lines, device="cuda"):
         fail(f"training after load made {n_after} merges (expected "
              f"{ALL_AFTER_LOAD}) or non-finite rows")
     launches = {"enhanced_loop_dense": K12.dense_launches,
-                "pairwise_min_best": K3.launches,
+                "pairwise_min_best": K3.launches, "replay_pass": RP.launches,
                 "sync_score": S1.launches, "curvature_step": C1.launches}
     return tok, start, dict(
         ctor_s=ctor_s, train_s=train_s, merges=merges,
         merges_per_s=merges / train_s, phase=tok.current_phase,
         curvature=curvature, after_load_s=after_s,
         after_load_merges=n_after, launches=launches,
+        replay_select_launches=RS.launches, syncs=syncs,
+        final_corpus=final_corpus,
         corpus_only_launches=K12.launches,
         chunk_syncs=[s["chunk_syncs"] for s in tok.training_stats],
         chunk_seconds=[round(s["chunk_seconds"], 4)
@@ -867,9 +896,10 @@ def check_replay_select(tok, lines):
     if not (torch.equal(alive_k, alive_p) and torch.equal(sel_k, sel_p)
             and int(flag) == int(live_p)):
         fail("replay_select's matching round differs from the plain version")
-    RS.reset_launches()
-    sel_k = SC._select_matching(m, mid)
-    rounds = RS.launches
+    alive, sel_k, rounds = m, torch.zeros_like(m), 0
+    while bool(alive.any()):
+        rounds += 1
+        alive, _ = RS.matching_round(alive, mid, sel_k)
     alive, sel_p, plain_rounds = m, torch.zeros_like(m), 0
     while bool(alive.any()):
         plain_rounds += 1
@@ -899,6 +929,125 @@ def check_replay_select(tok, lines):
         plain_take_ms=plain_take_ms, library_ms=library_ms,
         bound_ms=8 * n / H100_BYTES_PER_S * 1e3,
         bound_take_ms=2 * n / H100_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def _replay_pair(corpus, merges, start, end, n_init):
+    """R2 against the plain pass loop on card tensors, merges ``[start,
+    end)`` replayed onto ``corpus`` under both policies, exactly: corpus,
+    passes and matching rounds. Then each timed with CUDA events, the
+    kernel with its wrapper's host side against the plain loop, and the
+    bound by bytes: the corpus read once and written once (8 bytes a slot)
+    when the blocks hold their slices in shared memory, and that for
+    every pass when they hold them in global memory."""
+    from hyptokenizer_tpu_torch.ops.cuda import replay_pass as RP
+    from hyptokenizer_tpu_torch.tokenizer import scoring as SC
+    from hyptokenizer_tpu_torch.utils import metrics
+
+    n = corpus.shape[0]
+    plan = RP._plan(RP._launcher(), corpus.device, n)
+    count = end - start
+    res = dict(slots=n, start=start, window=count,
+               state="shared" if plan.shared else "global",
+               table=("block" if RP.table_capacity(count) <= RP.LOCAL_TABLE
+                      else "grid"))
+    for policy, select in (("rank", SC._select_matching),
+                           ("fixpoint", SC._select_leftmost)):
+        rank = policy == "rank"
+        got, stats = RP.replay(corpus, merges, start, end, n_init, rank=rank)
+        passes, rounds = stats.tolist()
+        metrics.tracing()
+        with torch.profiler.profile():
+            want = SC._replay(corpus, merges, start, count, n_init, select)
+            counters = metrics.trace_snapshot()["counters"]
+        plain = (counters["replay.passes"], counters["replay.match_rounds"])
+        if not torch.equal(got, want) or (passes, rounds) != plain:
+            fail(f"replay_pass ({policy}, window [{start}, {end}) on {n} "
+                 f"slots: {passes} passes, {rounds} rounds) differs from "
+                 f"the plain loop's ({plain})")
+        res[policy] = dict(
+            passes=passes, rounds=rounds,
+            ms=event_ms(lambda: RP.replay(corpus, merges, start, end,
+                                          n_init, rank=rank)),
+            plain_ms=event_ms(lambda: SC._replay(corpus, merges, start,
+                                                 count, n_init, select),
+                              reps=3),
+            bound_ms=(1 if plan.shared else passes) * 8 * n
+            / H100_BYTES_PER_S * 1e3)
+    return res
+
+
+def check_replay_pass(tok, lines):
+    """The sync's replay kernel R2 against its plain pass loop on the
+    card (:func:`_replay_pair`) over all the flagship's corpus slots: the
+    first ``LOG_EVERY`` trained merges replayed onto the constructor's
+    corpus, the window of a first sync after them (a rule table the grid
+    builds in global memory)."""
+    cfg = tok.enh_config
+    base = tok.enh_state.base
+    corpus = tok._encode_initial_corpus(lines,
+                                        tok.enh_state.corpus.shape[0])
+    window = min(LOG_EVERY, int(base.num_merges))
+    res = dict(name="replay_pass", route="cuda",
+               source="hyptokenizer_tpu_torch/ops/cuda/csrc/replay_pass.cu",
+               replaces="hyptokenizer_tpu/tokenizer/scoring.py:502, :569 "
+                        "the replays' XLA ops (no pallas_call)",
+               checked=True, max_abs_err=0, bound_by="bytes")
+    res.update(_replay_pair(corpus, base.merges, 0, window, cfg.n_init))
+    res.update(ms=res["rank"]["ms"], plain_ms=res["rank"]["plain_ms"],
+               bound_ms=res["rank"]["bound_ms"], library_ms=None)
+    return res
+
+
+def check_replay_pass_all(tok, start, alls):
+    """R2 on a storm-sized window of the all-features training: its syncs
+    are replayed in order from the constructor's corpus by R2 under the
+    path's own policy (each at the length the sync was handed), the
+    outcome checked against the trained corpus, and the first
+    ``STORM_RULES`` merges of its first phase-2 sync, replayed onto the
+    corpus as that sync was handed it (what a storm sync there would
+    replay: a rule table each block builds in shared memory), held to the
+    plain loop by :func:`_replay_pair`."""
+    from hyptokenizer_tpu_torch.ops.cuda import replay_pass as RP
+    from hyptokenizer_tpu_torch.tokenizer import scoring as SC
+
+    cfg = tok.enh_config
+    merges = tok.enh_state.base.merges
+    syncs = alls["syncs"]
+    pick = next((i for i, (_, s, e) in enumerate(syncs)
+                 if s >= cfg.phase2_step and e - s >= STORM_RULES), None)
+    if pick is None:
+        fail(f"the all-features training has no phase-2 sync of "
+             f"{STORM_RULES} rules or more: {syncs[:40]}")
+    c = start.corpus
+    at = None
+    for i, (n, s, e) in enumerate(syncs):
+        c = c[:n]
+        if i == pick:
+            at = c
+        c, _ = RP.replay(c, merges, s, e, cfg.n_init,
+                         rank=cfg.priority_replay)
+    final = alls["final_corpus"]
+    m = final.shape[0]
+    if m > c.shape[0] or not torch.equal(c[:m], final) or \
+            bool((c[m:] != SC.PAD_ID).any()):
+        fail("the all-features syncs replayed in order do not give the "
+             "trained corpus")
+    first = syncs[pick][1]
+    res = _replay_pair(at, merges, first, first + STORM_RULES, cfg.n_init)
+    res.update(sync=pick, syncs=len(syncs),
+               policy="rank" if cfg.priority_replay else "fixpoint")
+    return res
+
+
+def print_replay_pass(what, rec):
+    print(f"replay_pass on {what}: {rec['slots']} slots, merges "
+          f"[{rec['start']}, {rec['start'] + rec['window']}), slices in "
+          f"{rec['state']} memory, rule table by the {rec['table']}: "
+          + "; ".join(f"{p}: {rec[p]['passes']} passes, {rec[p]['rounds']} "
+                      f"rounds, {rec[p]['ms']:.4f} ms on the card, bound "
+                      f"{rec[p]['bound_ms']:.4f} ms (bytes), plain loop "
+                      f"{rec[p]['plain_ms']:.3f} ms"
+                      for p in ("rank", "fixpoint")), flush=True)
 
 
 def check_sync_score(tok):
@@ -2340,7 +2489,10 @@ def main() -> None:
           f"{k1['sync_ms']:.1f} ms",
           flush=True)
     rs = check_replay_select(tok, lines)
-    rs["launches"] = main["launches"]["replay_select"]
+    rs["launches"] = main["replay_select_launches"]
+    if rs["launches"]:
+        fail(f"the main path launched R1 {rs['launches']} times; its "
+             f"replay is R2")
     print(f"replay_select at {rs['slots']} slots ({rs['matches']} "
           f"matches, {rs['rounds']} rounds): round {rs['ms']:.4f} ms, take "
           f"{rs['take_ms']:.4f} ms on the card; bound {rs['bound_ms']:.4f} / "
@@ -2348,6 +2500,11 @@ def main() -> None:
           f"{rs['plain_ms']:.3f} / {rs['plain_take_ms']:.3f} ms; "
           f"torch.cummax alone {rs['library_ms']:.3f} ms; launches on the "
           f"main path {rs['launches']}", flush=True)
+    rp = check_replay_pass(tok, lines)
+    rp["launches"] = main["launches"]["replay_pass"]
+    print_replay_pass("the flagship's first window", rp)
+    print(f"replay_pass launches on the main path {rp['launches']}",
+          flush=True)
     s1 = check_sync_score(tok)
     s1["launches"] = main["launches"]["sync_score"]
     print(f"sync_score on the trained table ({s1['rows']} rows, "
@@ -2375,6 +2532,17 @@ def main() -> None:
           f"(K1 {alls['corpus_only_launches']}) syncs {alls['chunk_syncs']} "
           f"chunk_seconds {alls['chunk_seconds']}", flush=True)
 
+    if alls["replay_select_launches"]:
+        fail(f"the all-features path launched R1 "
+             f"{alls['replay_select_launches']} times; its replay is R2")
+    rp["all_features"] = check_replay_pass_all(tok, start, alls)
+    rp["launches_all_features"] = alls["launches"]["replay_pass"]
+    print_replay_pass(
+        f"all-features sync {rp['all_features']['sync']} of "
+        f"{rp['all_features']['syncs']} ({rp['all_features']['policy']} "
+        f"policy)", rp["all_features"])
+    print(f"replay_pass launches: main path {rp['launches']}, all-features "
+          f"path {rp['launches_all_features']}", flush=True)
     c1["all_features"] = check_curvature_step(tok)
     c1["launches_all_features"] = alls["launches"]["curvature_step"]
     for path, rec in (("flagship", c1["flagship"]),
@@ -2568,7 +2736,8 @@ def main() -> None:
         "gloo_world_two": par["gloo_all_reduce_us"]}}), flush=True)
     print(f"wall_s {time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"computed": computed}), flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, rs, s1, c1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, rs, rp, s1, c1]}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

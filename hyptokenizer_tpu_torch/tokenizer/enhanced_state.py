@@ -704,19 +704,34 @@ def sync_corpus(st: EnhancedState, config: EnhancedConfig,
             return _sync_finish(st, config, sampler, st.corpus, st.pair_keys,
                                 st.pair_counts, st.pair_unique,
                                 st.max_pair_count)
-    base = st.base
-    replay = (scoring.batch_rank_replay if config.priority_replay
-              else scoring.batch_fixpoint_replay)
     with metrics.span("sync.replay"):
-        start = int(st.corpus_synced)
-        corpus = replay(st.corpus, base.merges, start,
-                        int(base.num_merges) - start, config.n_init)
+        corpus = replay_corpus(st, config)
     with metrics.span("sync.pair_table"):
         keys, counts, n_unique, max_count = scoring.build_pair_table(
             corpus, config.freq_table_size)
     with metrics.span("sync.queues"):
         return _sync_finish(st, config, sampler, corpus, keys, counts,
                             n_unique, max_count)
+
+
+def replay_corpus(st: EnhancedState, config: EnhancedConfig) -> torch.Tensor:
+    """The corpus with the merges ``[corpus_synced, num_merges)`` replayed
+    (the rank replay under ``priority_replay``, else the fixpoint one).
+
+    On the card, one launch of kernel R2 (``scoring.replay_window``),
+    which reads the two counts there: no host read, and an empty window
+    gives a copy of the corpus. On the CPU, the plain pass loop from the
+    two counts read."""
+    base = st.base
+    if st.corpus.device.type == "cuda":
+        return scoring.replay_window(st.corpus, base.merges, st.corpus_synced,
+                                     base.num_merges, config.n_init,
+                                     rank=config.priority_replay)
+    start = int(st.corpus_synced)
+    replay = (scoring.batch_rank_replay if config.priority_replay
+              else scoring.batch_fixpoint_replay)
+    return replay(st.corpus, base.merges, start,
+                  int(base.num_merges) - start, config.n_init)
 
 
 def _sync_finish(st: EnhancedState, config: EnhancedConfig, sampler,

@@ -7,12 +7,15 @@ rolling hashes). The JAX package builds its scans from blocked pieces and
 its sorts from packed keys to keep XLA compile times down; here
 ``torch.sort``, ``torch.cumsum``, ``torch.unique_consecutive`` and
 ``torch.searchsorted`` give identical results (ties included). Not so the
-replay's run-parity take: ``torch.cummax`` of a 1-D tensor scans in one
-thread block, which over a 2.9M-slot corpus costs milliseconds a call. On
-the card the replay's selection is the kernel
-``ops/cuda/replay_select.py``, one launch a take or a matching round;
-:func:`parity_take_plain` and :func:`matching_round_plain` are its plain
-versions, taken for CPU tensors.
+replay: its run-parity take (a 1-D ``torch.cummax`` scans in one thread
+block, milliseconds a call over a 2.9M-slot corpus) and its passes and
+rounds, which the host would test by reading the device. On the card a
+window's whole replay is the kernel ``ops/cuda/replay_pass.py`` (R2), one
+launch with no host read; the pass loop :func:`_replay` is its plain
+version, taken for CPU tensors, and runs the same on any device. The
+single-rule replay's take (:func:`apply_merge_to_corpus`) is the kernel
+``ops/cuda/replay_select.py`` (R1) on the card, whose plain versions are
+:func:`parity_take_plain` and :func:`matching_round_plain`.
 
 Every function keeps its inputs' device. Hashes and ids are int32, as in
 the JAX package; pair keys are widened to int64 only inside a function.
@@ -23,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hyptokenizer_tpu_torch.ops.cuda import replay_select
+from hyptokenizer_tpu_torch.ops.cuda import replay_pass, replay_select
 from hyptokenizer_tpu_torch.utils import metrics
 
 PAD_ID = -1   # corpus hole / tail
@@ -218,7 +221,8 @@ def _replay(corpus, merges, start: int, count: int, n_init: int, select):
     """Passes of match -> select -> substitute -> compact, to fixpoint.
 
     One pass is complete unless some rule in the window has an operand made
-    inside the window (a within-chunk chain), as in the JAX package."""
+    inside the window (a within-chunk chain), as in the JAX package. The
+    plain version of kernel R2 (:func:`replay_window`)."""
     if count <= 0:
         return corpus
     window = merges[start:start + count]
@@ -240,18 +244,39 @@ def _replay(corpus, merges, start: int, count: int, n_init: int, select):
             return c
 
 
+def replay_window(corpus: torch.Tensor, merges: torch.Tensor, start, end,
+                  n_init: int, rank: bool) -> torch.Tensor:
+    """Merges [start, end) replayed on a corpus on the card, in one launch
+    of kernel R2 (``ops/cuda/replay_pass.py``): the rank replay
+    (``rank``) or the fixpoint replay. ``start`` and ``end`` are ints or
+    one-element int32 tensors on the card, read there. While a profiler
+    records, the kernel's passes and matching rounds are read back and
+    counted as the plain loop counts them; otherwise nothing is read."""
+    out, stats = replay_pass.replay(corpus, merges, start, end, n_init,
+                                    rank=rank)
+    if metrics.tracing():
+        passes, rounds = stats.tolist()
+        if passes:
+            metrics.count("replay.passes", passes)
+            metrics.count("replay.match_rounds", rounds)
+    return out
+
+
 def batch_fixpoint_replay(corpus: torch.Tensor, merges: torch.Tensor,
                           start: int, count: int, n_init: int
                           ) -> torch.Tensor:
     """Apply merges [start, start+count) as one rule table to fixpoint, the
     leftmost match winning (the reference's ``tokenize()`` semantics)."""
+    if corpus.device.type != "cpu" and count > 0:
+        return replay_window(corpus, merges, start, start + count, n_init,
+                             rank=False)
     return _replay(corpus, merges, start, count, n_init, _select_leftmost)
 
 
 def _select_leftmost(m: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
     """Greedy left-to-right matching: one round."""
     metrics.count("replay.match_rounds")
-    return _parity_take(m)
+    return parity_take_plain(m)
 
 
 def matching_round_plain(alive: torch.Tensor, pri: torch.Tensor,
@@ -273,15 +298,13 @@ def matching_round_plain(alive: torch.Tensor, pri: torch.Tensor,
 
 def _select_matching(m: torch.Tensor, pri: torch.Tensor) -> torch.Tensor:
     """Maximal matching by (rank, position): rounds of local minima."""
-    one_round = (matching_round_plain if m.device.type == "cpu"
-                 else replay_select.matching_round)
     alive = m
     sel = torch.zeros_like(m)
     rounds = 0
     live = torch.any(alive)
     while bool(live):
         rounds += 1
-        alive, live = one_round(alive, pri, sel)
+        alive, live = matching_round_plain(alive, pri, sel)
     metrics.count("replay.match_rounds", rounds)
     return sel
 
@@ -290,6 +313,9 @@ def batch_rank_replay(corpus: torch.Tensor, merges: torch.Tensor,
                       start: int, count: int, n_init: int) -> torch.Tensor:
     """Apply merges [start, start+count) in rank order (classic BPE), which
     equals the priority-mode encoder (``encode.tokenize_priority_py``)."""
+    if corpus.device.type != "cpu" and count > 0:
+        return replay_window(corpus, merges, start, start + count, n_init,
+                             rank=True)
     return _replay(corpus, merges, start, count, n_init, _select_matching)
 
 
@@ -491,8 +517,8 @@ def match_rules(key_hi: torch.Tensor, key_lo: torch.Tensor,
 # results, and the names stay so that a reader finds the counterparts.
 # They are not the same work: a 1-D ``torch.cummax`` runs in one thread
 # block, and the replay, which the JAX package builds on
-# ``blocked_cummax``, takes its run parity on the card from the kernel
-# ``ops/cuda/replay_select.py`` instead.
+# ``blocked_cummax``, takes its run parity on the card inside the kernels
+# ``ops/cuda/replay_pass.py`` and ``ops/cuda/replay_select.py`` instead.
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum, in ``x``'s dtype."""

@@ -23,8 +23,10 @@ sharded sync's layout), step by step against its plain version. The K2
 and K4 wrappers refuse CPU and non-contiguous tensors. The replay's
 selection kernel (ops/cuda/csrc/replay_select.cu) is held to
 ``scoring.parity_take_plain`` and ``matching_round_plain`` exactly, at
-lengths around its tile and at the flagship's 2.9M slots, and the rank and
-fixpoint replays of a real merge window on the card to the CPU's. The
+lengths around its tile and at the flagship's 2.9M slots. The replay
+kernel R2 (ops/cuda/csrc/replay_pass.cu; tests/test_torch_replay_pass.py
+holds it to the plain loop case by case) gives the rank and fixpoint
+replays of a real merge window on the card, equal to the CPU's. The
 sync's scoring kernel S1 (ops/cuda/csrc/sync_score.cu) is held to
 ``enhanced_state.score_candidates_plain`` on the same card tensors:
 candidate masks and sentinel distances exact, distances and scores within
@@ -48,6 +50,7 @@ from hyptokenizer_tpu_torch.ops.cuda import _build
 from hyptokenizer_tpu_torch.ops.cuda import enhanced_loop as K1
 from hyptokenizer_tpu_torch.ops.cuda import merge_loop as K4
 from hyptokenizer_tpu_torch.ops.cuda import pairwise as K3
+from hyptokenizer_tpu_torch.ops.cuda import replay_pass as RP
 from hyptokenizer_tpu_torch.ops.cuda import replay_select as RS
 from hyptokenizer_tpu_torch.ops.cuda import sync_score as S1
 from hyptokenizer_tpu_torch.tokenizer import (
@@ -788,29 +791,36 @@ def wiki_window():
 @pytest.mark.parametrize("policy", ["rank", "fixpoint"])
 def test_replay_on_wiki_corpus_matches_cpu(cuda, wiki_window, policy):
     """The replay of a real window on the card equals the CPU's plain one
-    exactly, in two syncs as training replays it; every selection went
-    through the kernel (``replay.select_launches`` equals
-    ``replay.match_rounds`` under a profiler)."""
+    exactly, in two syncs as training replays it; each replay is one
+    launch of kernel R2 (``replay.kernel_launches`` under a profiler), R1
+    is not launched, and R2's counted rounds and passes equal the plain
+    loop's."""
     replay = (SC.batch_rank_replay if policy == "rank"
               else SC.batch_fixpoint_replay)
     corpus, merges, n_init = wiki_window
     half = merges.shape[0] // 2
     want = corpus
     got = corpus.to(cuda)
+    RP.reset_launches()
     RS.reset_launches()
     metrics.tracing()   # a look with none recording: a record of its own
     with torch.profiler.profile():
         for start in (0, half):
-            want = replay(want, merges, start, half, n_init)
             got = replay(got, merges.to(cuda), start, half, n_init)
         torch.cuda.synchronize()
-    counters = metrics.trace_snapshot()["counters"]
+    card = metrics.trace_snapshot()["counters"]
+    metrics.tracing()
+    with torch.profiler.profile():
+        for start in (0, half):
+            want = replay(want, merges, start, half, n_init)
+    plain = metrics.trace_snapshot()["counters"]
     assert torch.equal(got.cpu(), want)
     assert int((want >= n_init).sum()) > 1000   # the rules did apply
-    assert RS.launches > 0
-    # The counters add the CPU replay's rounds too, which launch nothing.
-    assert counters["replay.select_launches"] == RS.launches
-    assert counters["replay.match_rounds"] == 2 * RS.launches
+    assert RP.launches == 2 and RS.launches == 0
+    assert card["replay.kernel_launches"] == 2
+    assert "replay.select_launches" not in card
+    assert card["replay.match_rounds"] == plain["replay.match_rounds"] > 0
+    assert card["replay.passes"] == plain["replay.passes"]
 
 
 # The sync's scoring, kernel S1.
